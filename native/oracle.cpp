@@ -3,7 +3,7 @@
 // Independent, textbook implementations of every metric's *semantics* as
 // documented in SURVEY.md (reference: /root/reference/src/distance/*.rs).
 // These are intentionally simple O(N*M) / linear algorithms — a third
-// opinion against both the reference (bit-parallel Rust) and the TPU
+// opinion against both the reference (bit-parallel Rust) and the device
 // kernels (batched bit-parallel JAX/Pallas), used for conformance testing
 // and as the host fast path for tiny one-shot calls where device dispatch
 // latency would dominate.
@@ -530,7 +530,7 @@ double rf_partial_ratio(const int64_t* a, int64_t n1,
 //   * LCS / indel          O(ceil(N/64)*M)  (Hyyro, lcs_seq.rs:199-261)
 //   * OSA                  O(ceil(N/64)*M)  (Hyyro + transposition term,
 //                                            osa.rs:84-227)
-// The recurrences mirror the library's own TPU kernels
+// The recurrences mirror the library's own device kernels
 // (rapidfuzz_tpu/ops/{levenshtein,lcs,osa}.py, u32 lanes there) widened to
 // u64 words.  Full-matrix sweeps are row-chunked (CHUNK_WORDS words of the
 // pattern at a time): the per-chunk PM table and VP/VN state stay cache

@@ -1,4 +1,5 @@
-"""rapidfuzz_tpu — a TPU-native fuzzy string-matching framework.
+"""rapidfuzz_tpu — an accelerator-native fuzzy string-matching
+framework.
 
 Brand-new JAX/XLA/Pallas design with the capabilities of the
 ``rapidfuzz-rs`` reference library (see SURVEY.md): the full metric family

@@ -14,7 +14,7 @@ Mirrors the observable contract of the reference's metric algebra traits
   masked out (batch API).  The reference's *internal* cutoff plumbing
   (inversion, ``ceil`` on normalized cutoffs, the 1e-5 imprecision constant
   in ``details/common.rs:4-7``) only prunes work and never changes which
-  results survive, so the TPU framework computes true scores and applies
+  results survive, so this library computes true scores and applies
   the cutoff as a mask.
 * ``score_hint`` is accepted everywhere for API parity; it is a pure
   performance hint in the reference (band-guess ladder,

@@ -5,7 +5,7 @@ The reference crate carries only dead recording scaffolding for this
 ``RECORD_MATRIX``/``RECORD_BIT_ROW`` const generics are only ever
 instantiated ``<0, 0>``); the wider rapidfuzz ecosystem (rapidfuzz-cpp /
 rapidfuzz-py) exposes the full alignment API.  This module provides the
-TPU-native version:
+device-native version:
 
 * the device kernels record per-text-column bit-rows
   (``ops/levenshtein.py:uniform_distance_record`` /

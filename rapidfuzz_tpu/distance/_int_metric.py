@@ -18,9 +18,9 @@ from ..ops import dispatch as _dispatch
 from ..utils import codec as _codec
 
 
-#: one-vs-many batches at least this large route through a Pallas corpus
-#: scan on TPU (one kernel tile); smaller ones stay on the XLA pair
-#: kernels where layout/upload would dominate
+#: one-vs-many batches at least this large route through a corpus scan on
+#: GPU (the scan kernel's length-sorted blocks); smaller ones stay on the
+#: XLA pair kernels where layout and upload would dominate
 SCAN_MIN = 4096
 #: metrics the CorpusScanner serves with identical semantics (hamming is
 #: excluded: the scanner pads, the batch API keeps the strict length
@@ -35,23 +35,21 @@ def scan_one_vs_many(name: str, q, corpus, weights=None,
     """One-vs-many distances via a one-off CorpusScanner, or None.
 
     ``BatchComparator.distances`` / ``*_many([q], corpus)`` otherwise run
-    the XLA pair kernels — ~100x the Pallas scan's cost at corpus scale
-    on TPU.  The scanner build (encode + sort + upload) is the same order
-    of work the XLA path pays anyway.  Jaro-family results come back as
-    f64 distances (``1 - similarity``).
+    the XLA pair kernels; on GPU the scanner routes the scan kernel where
+    it serves the metric, and its XLA route otherwise.  The scanner build
+    (encode + sort + upload) is the same order of work the pair path pays
+    anyway.  Jaro-family results come back as f64 distances
+    (``1 - similarity``).
 
-    ``score_cutoff`` (a DISTANCE bound) routes banded device kernels
-    where available; entries above it come back with any value > the
-    cutoff (callers re-apply the identical mask).
+    ``score_cutoff`` (a DISTANCE bound): entries above it come back with
+    any value > the cutoff (callers re-apply the identical mask).
     """
-    import os
+    from ..ops import route as _route
 
     if name not in _SCANNABLE:
         return None
-    if os.environ.get("RAPIDFUZZ_TPU_FORCE_PALLAS") != "interpret":
-        from ..ops.pallas import tpu_backend
-        if not tpu_backend():
-            return None
+    if _route.default_platform() != "gpu":
+        return None
     from ..parallel.scan import CorpusScanner
     sc = CorpusScanner(list(corpus), metric=name, weights=weights,
                        prefix_weight=prefix_weight)

@@ -3,7 +3,7 @@
 Public surface mirrors the reference module
 ``/root/reference/src/distance/levenshtein.rs``: the 8 score functions,
 ``Args`` + ``WeightTable`` builders, and a ``BatchComparator`` — extended
-TPU-natively with batch APIs (``distance_many`` and
+with device batch APIs (``distance_many`` and
 ``BatchComparator.distances``) that run the Pallas/XLA kernels over padded
 length buckets.
 
@@ -210,26 +210,9 @@ def _scalar(s1, s2, weights: WeightTable,
                     return ins * fast.int_metric(0, s1, s2), mx
             return fast.lev_weighted(s1, s2, ins, dele, sub), mx
     u1, u2 = _codec.encode_one(s1), _codec.encode_one(s2)
-    if _c.scalar_backend() == "device":
-        ins, dele, sub = (weights.insertion_cost, weights.deletion_cost,
-                          weights.substitution_cost)
-        if (ins == dele == sub and ins > 0
-                and u1.size * u2.size > 1_000_000):
-            # long uniform pairs: the banded device pair kernel
-            # (ops/pallas/pair_kernel; the levenshtein.rs:769-1019 route)
-            # instead of a padded one-pair batch scan
-            from ..ops.pallas import pair_kernel as _pk
-            from ..ops.pallas import tpu_backend as _tb
-            cut_u = None if cutoff is None else cutoff // ins
-            hint_u = None if hint is None else max(hint // ins, 1)
-            try:
-                d = _pk.lev_pair(u1, u2, score_cutoff=cut_u,
-                                 score_hint=hint_u, interpret=not _tb())
-                dist = (ins * d if d is not None
-                        else cutoff + 1)        # certified above the cutoff
-            except ValueError:  # distance beyond the device band limit
-                dist = _raw_distance(u1, u2, weights, cutoff, hint)
-            return dist, maximum(u1.size, u2.size, weights)
+    # long pairs stay on the host C path under the device backend too: a
+    # one-pair batch's [LB, LA] equality plane grows with their product
+    if _c.scalar_backend() == "device" and u1.size * u2.size <= 1_000_000:
         c1, l1, c2, l2 = _codec.encode_pair_batch([u1], [u2])
         dist = int(_raw_distance_batch(c1, l1, c2, l2, weights)[0])
     else:
@@ -357,7 +340,7 @@ def normalized_similarity_with_args(s1, s2, args: Args):
                                  score_cutoff=args.cutoff, score_hint=args.hint)
 
 
-# -------------------------------------------------------------- batch (TPU)
+# ----------------------------------------------------------- batch (device)
 
 def _raw_distance_batch(c1, l1, c2, l2, weights: WeightTable) -> np.ndarray:
     """Device batched raw distances for padded encoded batches."""
@@ -445,10 +428,10 @@ def normalized_similarity_many(s1s, s2s, *, weights: WeightTable = _UNIFORM,
 class BatchComparator:
     """One-vs-many comparator (``levenshtein.rs:1625-1818``).
 
-    The reference caches the query's PM bitvector table; the TPU equivalent
-    keeps the encoded query (device kernels derive PM columns on the fly via
-    compare+pack, which is faster than per-char gathers on TPU) and reuses
-    the compiled one-vs-many program across calls.
+    The reference caches the query's PM bitvector table; the device
+    equivalent keeps the encoded query (the XLA kernels derive PM columns
+    via compare+pack, the GPU scan kernel builds the table per scan) and
+    reuses the compiled one-vs-many program across calls.
     """
 
     def __init__(self, s1, weights: WeightTable = _UNIFORM):
@@ -496,7 +479,7 @@ class BatchComparator:
                                      score_cutoff=args.cutoff,
                                      score_hint=args.hint)
 
-    # TPU-native batch API (all 4 score kinds, levenshtein.rs:1750-1818)
+    # device batch API (all 4 score kinds, levenshtein.rs:1750-1818)
     def _batch(self, corpus):
         c1, l1, c2, l2 = _codec.encode_pair_batch([self._u1], corpus)
         dist = _raw_distance_batch(c1, l1, c2, l2, self._weights)

@@ -3,7 +3,7 @@
 ``ratio`` is the reference crate's only fuzz scorer (``fuzz.rs:60-85``:
 indel normalized similarity in ``[0.0, 1.0]``; ``fuzz.rs:207-213``
 comments out the rest).  The remaining ecosystem scorers
-(rapidfuzz-cpp/-py) are provided TPU-natively on top of it:
+(rapidfuzz-cpp/-py) are provided on top of it:
 
 * ``partial_ratio`` — best sliding-window ``ratio`` of the shorter string
   against the longer, windows batched through the device LCS kernel
@@ -202,12 +202,8 @@ def partial_ratio(s1, s2, *, processor: Optional[Callable] = None,
 def partial_ratio_alignment_many(s1, choices, *,
                                  processor: Optional[Callable] = None,
                                  score_cutoff: Optional[float] = None):
-    """One-vs-many best-window alignments (``list[ScoreAlignment]``).
-
-    On TPU the whole batch runs in the one windowed-kernel dispatch —
-    the kernel tracks each candidate's best window span, so snippet
-    positions come at scan rate (entries under ``score_cutoff`` are
-    ``None``).  Tie-breaks match the pairwise host sweep exactly.
+    """One-vs-many best-window alignments (``list[ScoreAlignment]``;
+    entries under ``score_cutoff`` are ``None``).
 
     >>> from rapidfuzz_tpu import fuzz
     >>> a = fuzz.partial_ratio_alignment_many("needle", ["say needle here"])
@@ -219,9 +215,7 @@ def partial_ratio_alignment_many(s1, choices, *,
         choices = [processor(c) for c in choices]
     uq = _codec.encode_one(s1)
     ucs = [_codec.encode_one(c) for c in choices]
-    res = _window_scan_alignments(uq, ucs)
-    if res is None:
-        res = [partial_ratio_alignment(uq, uc) for uc in ucs]
+    res = [partial_ratio_alignment(uq, uc) for uc in ucs]
     if score_cutoff is not None:
         res = [a if a is not None and a.score >= score_cutoff else None
                for a in res]
@@ -445,109 +439,19 @@ def ratio_many(s1, choices, *, processor: Optional[Callable] = None,
     return _dispatch.BatchResult(*_c.mask_similarity(vals, score_cutoff))
 
 
-#: widest query the windowed Pallas kernel serves (W <= 2 keeps the
-#: flat body within the band kernel's compile budget)
-_WINDOW_KERNEL_MAX_Q = 64
-#: widest candidate bucket (VMEM cap, matches the scanner's)
-_WINDOW_KERNEL_MAX_LB = 1024
-
-
-def _window_scan_scores(uq: np.ndarray, ucs, windows: bool = False):
-    """``partial_ratio`` scores via the windowed Pallas kernel
-    (``ops/pallas/partial_kernel.py``) — one device dispatch for the
-    whole window sweep.  Returns ``None`` when the kernel can't serve
-    (off-TPU, wide alphabet, query too long, bucket too wide);
-    candidates shorter than the query (whose window roles swap) are
-    re-scored through the host path."""
-    import os
-
-    m = int(uq.size)
-    if not (1 <= m <= _WINDOW_KERNEL_MAX_Q):
-        return None
-    interpret = os.environ.get("RAPIDFUZZ_TPU_FORCE_PALLAS") == "interpret"
-    if not interpret:
-        from .ops.pallas import tpu_backend
-        if not tpu_backend():
-            return None
-    if int(uq.min()) < 0 or int(uq.max()) > 255:
-        return None
-    lens = np.array([int(u.size) for u in ucs], np.int64)
-    nz = [u for u in ucs if u.size]
-    if nz and (min(int(u.min()) for u in nz) < 0
-               or max(int(u.max()) for u in nz) > 255):
-        return None
-    LB = max(32, -(-int(lens.max(initial=0)) // 32) * 32)
-    if LB > _WINDOW_KERNEL_MAX_LB:
-        return None
-
-    import jax.numpy as jnp
-
-    from .ops.pallas import lev_kernel as _lk
-    from .ops.pallas import partial_kernel as _pk
-
-    B = len(ucs)
-    Bp = -(-max(B, 1) // 4096) * 4096
-    chars = np.full((Bp, LB), -1, np.int32)
-    for i, u in enumerate(ucs):
-        chars[i, :u.size] = u
-    lensp = np.pad(lens, (0, Bp - B)).astype(np.int32)
-    cand3, lb2 = _lk.prepare_corpus(jnp.asarray(chars),
-                                    jnp.asarray(lensp), LB=LB)
-    mode = _lk.pick_mode(uq, int(chars.max()) if chars.size else 0)
-    num, den, wst, wen = _pk.partial_ratio_1v_many(uq, cand3, lb2,
-                                                   mode=mode,
-                                                   interpret=interpret)
-    num = np.asarray(num).reshape(-1)[:B].astype(np.float64)
-    den = np.asarray(den).reshape(-1)[:B].astype(np.float64)
-    # same f64 expression as the host path (1 - dist/total), so scores
-    # match it bit-for-bit
-    out = 1.0 - (den - num) / den
-    for i in np.flatnonzero(lens < m):
-        out[i] = _best_window(ucs[i], uq)[0]
-    if not windows:
-        return out
-    wst = np.asarray(wst).reshape(-1)[:B]
-    wen = np.asarray(wen).reshape(-1)[:B]
-    return out, wst, wen, lens
-
-
-def _window_scan_alignments(uq, ucs):
-    """Batch ``ScoreAlignment``s via the kernel's position outputs, or
-    None off the device route."""
-    r = _window_scan_scores(uq, ucs, windows=True)
-    if r is None:
-        return None
-    out, wst, wen, lens = r
-    m = int(uq.size)
-    res = []
-    for i, uc in enumerate(ucs):
-        if int(lens[i]) < m:    # roles swap: host path (incl. empties)
-            a = partial_ratio_alignment(uq, uc)
-            res.append(a)
-            continue
-        res.append(ScoreAlignment(float(out[i]), 0, m,
-                                  int(wst[i]), int(wen[i])))
-    return res
-
-
 def partial_ratio_many(s1, choices, *,
                        processor: Optional[Callable] = None,
                        score_cutoff: Optional[float] = None
                        ) -> _dispatch.BatchResult:
-    """One-vs-many ``partial_ratio``.  On TPU the whole window sweep runs
-    in one Pallas dispatch (four window starts at a time sharing PM
-    gathers, ``ops/pallas/partial_kernel.py``); elsewhere every choice's
-    clipped windows are flattened into shared device batches (one
-    dispatch per ~4M chars) instead of one scan per pair."""
-    from .ops import lcs as _lcs_ops
-
+    """One-vs-many ``partial_ratio``: every choice's clipped windows are
+    flattened into shared device batches (one dispatch per ~4M chars)
+    instead of one scan per pair."""
     if processor is not None:
         s1 = processor(s1)
         choices = [processor(c) for c in choices]
     uq = _codec.encode_one(s1)
     ucs = [_codec.encode_one(c) for c in choices]
-    dev = _window_scan_scores(uq, ucs)
-    out = dev if dev is not None else _host_window_scores(uq, ucs)
+    out = _host_window_scores(uq, ucs)
     return _dispatch.BatchResult(*_c.mask_similarity(out, score_cutoff))
 
 

@@ -3,12 +3,13 @@
 The reference's core data structure is the pattern-match (PM) bitvector
 table: one 64-bit mask per alphabet symbol with bit ``i`` set iff
 ``pattern[i] == symbol`` (``/root/reference/src/details/pattern_match_vector.rs``).
-On TPU we never build a per-symbol table + per-char gather (gathers are slow
-on the VPU); instead we materialise the *per-text-position* PM columns
-directly from an equality matrix — a broadcast compare that the VPU
-vectorises — and pack them into ``uint32`` words (TPU lanes are 32-bit, so
-the reference's u64 words become 2x u32 with explicit carries; see
-``src/details/intrinsics.rs:25-29`` for the carry semantics we emulate).
+The XLA kernels never build a per-symbol table + per-char gather; instead
+they materialise the *per-text-position* PM columns directly from an
+equality matrix — a broadcast compare that vectorises — and pack them into
+``uint32`` words (the reference's u64 words become 2x u32 with explicit
+carries, so JAX needs no 64-bit mode; see ``src/details/intrinsics.rs:25-29``
+for the carry semantics we emulate).  The GPU scan kernel
+(``ops/scan_kernel.py``) reads a per-symbol table instead.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def pm_columns(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     ``pm[b, j, w]`` bit ``k`` is set iff ``a[b, w*32+k] == b[b, j]``.
     Equivalent to the reference's ``pm.get(word, ch2)`` lookups
     (``src/distance/levenshtein.rs:843``) but computed by compare+pack,
-    which keeps everything on the VPU/MXU instead of doing per-char gathers.
+    which keeps everything in vector ops instead of per-char gathers.
     """
     return pack_bits(eq_matrix(a, b))
 

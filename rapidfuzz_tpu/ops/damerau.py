@@ -2,7 +2,8 @@
 
 Semantics of the reference's Zhao-Sahni linear-space algorithm
 (``/root/reference/src/distance/damerau_levenshtein.rs:111-168``),
-restructured for TPU: the two sequential last-occurrence structures become
+restructured for batched vector hardware: the two sequential
+last-occurrence structures become
 carried/derived state —
 
 * ``k`` (last row < i whose ``a`` char equals ``b[j]``) is a running
@@ -29,10 +30,9 @@ BIG = np.int32(1 << 28)   # numpy: keep import free of device ops
 def damerau_distance(a, la, b, lb):
     """True unrestricted Damerau-Levenshtein distance -> int32[B].
 
-    All row-shaped state is padded to a multiple of 128 lanes (``RW``) so
-    every per-row op, gather, and associative scan stays lane-aligned on
-    TPU — with 65-wide rows each op pays a relayout and the whole scan
-    runs ~100x slower.  Columns are laid out at index ``j`` (1-based DP
+    All row-shaped state is padded to a multiple of 128 (``RW``) so every
+    per-row op, gather, and associative scan works on aligned rows.
+    Columns are laid out at index ``j`` (1-based DP
     column ``j`` at lane ``j``); lanes past ``LB`` hold inert values.
     """
     LA = a.shape[-1]
@@ -70,9 +70,8 @@ def damerau_distance(a, la, b, lb):
 
         # (L[j], t[j]) = (last col < j of this row matching a[i],
         #                 D_{i-2}[L-1]) via one last-match propagation scan
-        # — a per-element gather here scalarises on TPU (~10 ns/elem) and
-        # dominated the whole kernel; the select-scan is 7 log-steps of
-        # vector ops instead
+        # — a select-scan of 7 log-steps of vector ops instead of a
+        # per-element gather
         dim2_up = _shift_up(dim2)                        # D_{i-2}[j-1] at j
         pos0 = jnp.where(eq_i, jj, 0)
         val0 = jnp.where(eq_i, dim2_up, BIG)

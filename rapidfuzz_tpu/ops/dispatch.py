@@ -12,7 +12,13 @@ import functools
 from typing import NamedTuple
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+from jax import lax
+
+#: bytes of per-candidate intermediates (the ``[rows, LB, LA]`` equality
+#: planes and PM columns) one chunk of an XLA scan may hold
+XLA_CHUNK_BYTES = 4 << 30
 
 
 class BatchResult(NamedTuple):
@@ -43,3 +49,25 @@ def run_pairs(kernel, c1, l1, c2, l2, **static) -> np.ndarray:
     fn = jit_kernel(kernel, *sorted(static.items()))
     out = fn(c1, l1, c2, l2)
     return np.asarray(jax.device_get(out))
+
+
+def chunked(fn):
+    """Wrap a pair op ``fn(a, la, b, lb)`` whose intermediates grow as
+    ``B * LB * LA`` so the candidate axis of ``b``/``lb`` runs in chunks
+    whose intermediates stay under :data:`XLA_CHUNK_BYTES` (read at trace
+    time).  ``a``/``la`` (the query side) broadcast against every chunk.
+    Outputs may be one ``[B]`` array or a tuple of them.
+    """
+    def run(a, la, b, lb):
+        B, LB = b.shape
+        rows = max(1, XLA_CHUNK_BYTES // (4 * LB * max(a.shape[-1], 32)))
+        if rows >= B:
+            return fn(a, la, b, lb)
+        n = -(-B // rows)
+        pad = n * rows - B
+        bc = jnp.pad(b, ((0, pad), (0, 0)), constant_values=-1)
+        lbc = jnp.pad(lb, (0, pad))
+        out = lax.map(lambda x: fn(a, la, x[0], x[1]),
+                      (bc.reshape(n, rows, LB), lbc.reshape(n, rows)))
+        return jax.tree.map(lambda o: o.reshape(n * rows)[:B], out)
+    return run

@@ -89,10 +89,9 @@ def jaro_components(a, la, b, lb):
     common = prefix + nflag
 
     # transpositions: walk flagged text chars in order, each popping the
-    # lowest remaining claimed pattern position and comparing chars — the
-    # Pallas kernel's technique (ops/pallas/jaro_kernel.py popping pass,
-    # matching count_transpositions_word, jaro.rs:339-368).  The previous
-    # stable-argsort compaction scalarised on TPU lanes.
+    # lowest remaining claimed pattern position and comparing chars
+    # (count_transpositions_word, jaro.rs:339-368) — vector ops instead of
+    # a stable-argsort compaction.
     def tstep(carry, j):
         rem, trans = carry
         pop = lax.dynamic_slice_in_dim(tflag, j, 1, axis=1)[:, 0]

@@ -1,6 +1,6 @@
 """Batched uniform/weighted Levenshtein kernels (XLA/jnp compute path).
 
-TPU-first redesign of the reference's kernel ladder
+Device-first redesign of the reference's kernel ladder
 (``/root/reference/src/distance/levenshtein.rs``):
 
 * The reference dispatches at runtime between mbleven / 1-word Hyyrö /
@@ -9,7 +9,7 @@ TPU-first redesign of the reference's kernel ladder
   single *batched* Myers/Hyyrö multi-word recurrence over ``uint32`` lanes
   covers all routes; cutoff semantics are applied by the caller as masks.
 * Text position is the sequential axis (``lax.scan``); the (small, static)
-  word axis is unrolled; the batch axis rides the VPU lanes.
+  word axis is unrolled; the batch axis is the vector axis.
 * Inter-word HP/HN carries follow the block recurrence of
   ``levenshtein.rs:838-875`` (word size 32 instead of 64).
 

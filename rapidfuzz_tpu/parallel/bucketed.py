@@ -1,16 +1,18 @@
 """Length-bucketed composite scanner for heterogeneous corpora.
 
 :class:`~rapidfuzz_tpu.parallel.scan.CorpusScanner` pads its whole
-corpus to ONE bucket.  Per-tile dynamic trip counts already stop the
-COMPUTE at each tile's longest candidate (the corpus is length-sorted),
-but every grid step still DMAs the full bucket-width candidate block —
-a corpus of mostly-20-char strings with a few 1000-char outliers pays
-~50x the necessary HBM traffic, and a single >1024-char outlier forces
-the whole corpus onto the streaming kernels.
+corpus to ONE bucket.  On the scan kernel's route the per-block trip
+counts stop the COMPUTE at each block's longest candidate (the corpus is
+length-sorted), but the packed corpus still spans the bucket width, and
+on the XLA route every candidate pays the full bucket — a corpus of
+mostly-20-char strings with a few 1000-char outliers pays ~50x the
+necessary memory, and a single outlier past the kernel's bucket cap
+moves the whole corpus onto the XLA route.
 
-:class:`BucketedScanner` splits the corpus into length classes at the
-natural kernel boundaries (64 / 256 / 1024 chars — word-count and
-stream thresholds), builds one device-resident ``CorpusScanner`` per
+:class:`BucketedScanner` splits the corpus into length classes (64 /
+256 / 4096 chars: the two- and eight-word query shapes and the kernel's
+bucket cap, ``ops.route.KERNEL_MAX_LB``), builds one device-resident
+``CorpusScanner`` per
 populated class, and merges results back to corpus order on host.  A
 class is only split off when it has enough members to fill real kernel
 tiles (``min_split``), so homogeneous corpora collapse to a single
@@ -25,12 +27,13 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..ops.route import KERNEL_MAX_LB
 from ..utils import codec as _codec
 from .scan import CorpusScanner
 
-#: class edges: <=64 (1-2 word kernels), <=256, <=1024 (VMEM bucket cap),
-#: and everything above (streaming kernels)
-EDGES = (64, 256, 1024)
+#: class edges: <=64, <=256, <= the scan kernel's bucket cap, and
+#: everything above (XLA route)
+EDGES = (64, 256, KERNEL_MAX_LB)
 
 
 class BucketedScanner:
@@ -106,8 +109,8 @@ class BucketedScanner:
         return _dispatch.BatchResult(*_c.mask_distance(vals, score_cutoff))
 
     def topk(self, query, k: int, *, score_cutoff=None):
-        """(values[<=k], corpus_indices) — per-class top-k (each child
-        keeps its auto-band shortcut), merged by (value, index)."""
+        """(values[<=k], corpus_indices) — per-class top-k, merged by
+        (value, index)."""
         vs, ids = [], []
         for sc, idx in zip(self._children, self._index):
             if idx.size == 0:

@@ -1,10 +1,9 @@
 """Sharded one-vs-many / many-vs-many corpus scans.
 
-TPU-native equivalent of running a ``BatchComparator`` over a large corpus
-(``/root/reference/src/distance/levenshtein.rs:1625-1657`` amortizes the
-query PM table; here the corpus is sharded over the ``data`` mesh axis, the
-query is replicated, and the compiled scan + optional top-k merge is reused
-across calls).
+Device-resident equivalent of running a ``BatchComparator`` over a large
+corpus (``levenshtein.rs:1625-1657`` amortizes the query PM table; here the
+corpus is sharded over the ``data`` mesh axis, the query is replicated, and
+the compiled scan + optional top-k merge is reused across calls).
 """
 
 from __future__ import annotations
@@ -23,7 +22,10 @@ from ..ops import levenshtein as _lev_ops
 from ..ops import lcs as _lcs_ops
 from ..ops import osa as _osa_ops
 from ..ops import damerau as _dam_ops
+from ..ops import dispatch as _dispatch
 from ..ops import jaro as _jaro_ops
+from ..ops import route as _route
+from ..ops import scan_kernel as _sk
 from ..ops import simple as _simple_ops
 from ..utils import codec as _codec
 from .topk import topk_merge
@@ -89,44 +91,41 @@ def sharded_distances(metric: str, mesh: Mesh, query, corpus_chars,
     return jfn(q, lq, c, lc)
 
 
-_PALLAS_METRICS = ("levenshtein", "indel", "lcs_seq", "osa")
 _F64_METRICS = ("jaro", "jaro_winkler")
 _PARTIAL_METRICS = ("partial_ratio",)
 
 
-def _lcs_run(scal, tabs, cand3, lb2, **statics):
-    """Signature adapter: the LCS kernel takes no scalar operand."""
-    from ..ops.pallas import lcs_kernel as _ck
-
-    return _ck._run(tabs, cand3, lb2, **statics)
-
-
-def _lcs_stream_run(scal, tabs, cand3, lb2, **statics):
-    """Adapter for the streamed (long-bucket) LCS kernel."""
-    from ..ops.pallas import stream_kernel as _sk
-
-    return _sk._lcs_run(tabs, cand3, lb2, **statics)
+def _kernel_finish(metric: str, raw, las, lens, wscale: int):
+    """Kernel output [NQ, B] (Levenshtein distances or LCS lengths) ->
+    the metric's distances."""
+    la = las[:, None]
+    if metric == "levenshtein":
+        d = raw
+    elif metric == "indel":
+        d = la + lens[None, :] - 2 * raw
+    else:                                               # lcs_seq
+        return jnp.maximum(la, lens[None, :]) - raw
+    return d * wscale if wscale != 1 else d
 
 
 class CorpusScanner:
     """Precompiled one-vs-many scan over a device-resident sharded corpus.
 
-    The corpus is encoded once (packed + length-sorted on TPU), placed
-    sharded over the mesh's ``data`` axis, and every query scan reuses the
-    compiled program — the BatchComparator pattern scaled out.  On a TPU
-    the scans run the Pallas kernels (Levenshtein incl. weighted/banded,
-    indel, lcs_seq, OSA, Jaro family): byte corpora directly, wide
-    alphabets through the per-query device remap, uniform-Levenshtein
-    buckets > 1024 chars through the streaming chunk kernel, Damerau via
-    the lane-column kernel.  Remaining cases (other metrics > 1024 chars,
-    > 127-distinct-symbol queries) use the XLA kernels over the mesh.
+    The corpus is encoded once, placed sharded over the mesh's ``data``
+    axis, and every query scan reuses the compiled program — the
+    BatchComparator pattern scaled out.  :func:`rapidfuzz_tpu.ops.route.
+    pick_route` chooses the route: on GPU meshes, byte corpora under
+    Levenshtein / indel / lcs_seq run the Pallas scan kernel over a
+    length-sorted, byte-packed copy; every other case runs the XLA ops,
+    chunked along the candidate axis (:func:`rapidfuzz_tpu.ops.dispatch.
+    chunked`).  ``force_xla`` takes the XLA ops on every route (for
+    measuring the kernel against them).
     """
 
     def __init__(self, corpus, metric: str = "levenshtein",
                  mesh: Mesh | None = None, bucket: int | None = None,
-                 prefix_weight: float = 0.1, weights=None):
-        from ..ops.pallas import tpu_backend
-
+                 prefix_weight: float = 0.1, weights=None,
+                 force_xla: bool = False):
         if mesh is None:
             devs = jax.devices()
             mesh = Mesh(devs, ("data",))
@@ -190,75 +189,14 @@ class CorpusScanner:
         n = len(lens)
         self.lengths = lens[:n].copy()     # host lengths, corpus order
         ndev = len(mesh.devices.flat)
-
-        self._cmax = int(chars.max()) if chars.size else 0
-        # LB cap: a candidate block is LB/4 * 32 * 128 u32 = LB KB; past
-        # ~1024 the double-buffered blocks overflow VMEM -> XLA path.
-        # RAPIDFUZZ_TPU_FORCE_PALLAS=interpret runs the Pallas path in
-        # interpreter mode off-TPU (tests exercise the mesh composition)
-        force = os.environ.get("RAPIDFUZZ_TPU_FORCE_PALLAS")
-        self._interpret = force == "interpret"
-        # gate on the MESH's devices, not the default backend: a CPU mesh
-        # in a TPU-backed process (the driver's dryrun) must not route
-        # into compiled Pallas
-        mesh_tpu = tpu_backend() and all(
-            getattr(d, "platform", "") not in ("cpu", "gpu", "rocm")
-            for d in mesh.devices.flat)
-        # levenshtein/indel/lcs/osa buckets beyond the VMEM cap stream the
-        # text as a second Pallas grid dimension (stream_kernel; the
-        # reference's long-text block kernels, levenshtein.rs:769-1019 /
-        # osa.rs:156-227); jaro/jaro_winkler stream too, up to the
-        # text-flag scratch budget
-        self._stream = (metric in ("levenshtein", "indel", "lcs_seq",
-                                   "osa")
-                        and self._weights is None
-                        and chars.shape[1] > 1024
-                        and chars.shape[1] % 512 == 0)
-        if metric in _F64_METRICS:
-            from ..ops.pallas.stream_kernel import JARO_STREAM_MAX_LB
-            self._stream = (1024 < chars.shape[1] <= JARO_STREAM_MAX_LB
-                            and chars.shape[1] % 512 == 0)
-        if metric == "levenshtein" and self._weights is not None:
-            # weighted scans stream the DP row across text chunks
-            # (wlev_stream; over-cap queries fall back to the XLA scan
-            # on the unpacked device corpus at query time)
-            self._stream = (chars.shape[1] > 1024
-                            and chars.shape[1] % 512 == 0)
-        self._pallas = ((mesh_tpu or bool(force))
-                        and metric in (_PALLAS_METRICS + _F64_METRICS
-                                       + _PARTIAL_METRICS)
-                        and (chars.shape[1] <= 1024 or self._stream))
-        self._stream = self._stream and self._pallas
-        # wide alphabets (chars >= 256) ride the same kernels through a
-        # per-query device-side remap to query-local ids (lev_kernel.
-        # remap_corpus) instead of dropping to the ~100x-slower XLA path
-        self._wide = self._pallas and self._cmax >= 256
-        # the Damerau kernel keeps DP columns on the lane axis: any int32
-        # alphabet, candidates <= 128 chars, 32 rows x (128/seg) segments
-        # per tile; 128 < LB <= MAX_TEXT_LONG (8192) uses the multi-block
-        # long form with reduction-free cross-block carry injection
-        from ..ops.pallas import damerau_kernel as _dk_gate
-        self._dam_pallas = ((mesh_tpu or bool(force))
-                            and metric == "damerau_levenshtein"
-                            and chars.shape[1] <= _dk_gate.MAX_TEXT_LONG)
-        self._dam_long = self._dam_pallas and chars.shape[1] > 128
-        # <= 128 chars rides the sequential-pair kernel (pairs in lanes,
-        # zero lane scans — 35.5M len-64 pairs/s vs 8.4M lane-transposed)
-        self._dam_seq = self._dam_pallas and not self._dam_long
         self._ndev = ndev
-        self._smap_cache = {}
-        if self._pallas:
-            align = 4096 * ndev
-        elif self._dam_pallas:
-            from ..ops.pallas import damerau_kernel as _dkm
-            if self._dam_long:
-                align = 8 * ndev   # long tiles divide any multiple of 8
-            elif self._dam_seq:
-                align = _dkm.SEQ_SUB * 128 * ndev   # whole (sub,128) blocks
-            else:
-                align = 32 * (128 // _dkm.pick_seg(chars.shape[1])) * ndev
-        else:
-            align = ndev
+        self._cmax = int(chars.max()) if chars.size else 0
+        self._LB = chars.shape[1]
+        self._platform = _route.mesh_platform(mesh)
+        self._kernel = not force_xla and _route.pick_route(
+            self._platform, metric, self._LB, wide=self._cmax >= 256,
+            weighted=self._weights is not None).kernel
+        align = (_sk.BLOCK if self._kernel else 1) * ndev
         padded = -(-max(n, 1) // align) * align
         if padded != n:
             chars = np.concatenate(
@@ -267,149 +205,131 @@ class CorpusScanner:
             # padded rows: length 0 — masked out of top-k by +inf distance
             lens = np.concatenate([lens, np.zeros(padded - n, np.int32)])
         self.n = n
-        shard = NamedSharding(mesh, P("data", None))
-        shard1 = NamedSharding(mesh, P("data"))
-        self._order = None
-        if self._pallas:
-            from ..ops.pallas import lev_kernel as _lk
-            # length-sort so each (32,128) kernel tile stops at its own
-            # longest candidate (the kernels' dynamic trip count); padding
-            # rows (length 0) sort to the front and are masked by _valid.
-            # On a mesh, round-robin the sorted order across shards so
-            # every shard carries a similar length distribution (the
-            # longest shard is the scan's critical path).
-            order = np.argsort(lens, kind="stable")
-            if ndev > 1:
-                order = np.concatenate([order[k::ndev] for k in range(ndev)])
-            self._order = order
-            self._valid = self._order < n
-            chars = chars[self._order]
-            lens = lens[self._order]
-            self._LB = chars.shape[1]
-            if self._wide:
-                # keep the sorted corpus unpacked on device, PRE-TRANSPOSED
-                # to the kernel layout (query-independent): each query
-                # remaps it to query-local byte ids in a Pallas kernel
-                # (remap_pack — the XLA searchsorted route's per-element
-                # gathers scalarise at ~10 ns/char, 22.9 s for a 4M x 64
-                # corpus); the > 127-distinct-symbol fallback rebuilds the
-                # [B, LB] view on demand (_wide_chars_bl)
-                cd = _lk.transpose_corpus(jnp.asarray(chars), LB=self._LB)
-                lb2 = jnp.asarray(lens).reshape(-1, _lk.LANE)
-                tshard = NamedSharding(mesh, P(None, "data", None))
-                if ndev > 1:
-                    cd = jax.device_put(cd, tshard)
-                    lb2 = jax.device_put(
-                        lb2, NamedSharding(mesh, P("data", None)))
-
-                    def _remap_sharded(ct, vocab, _LB=self._LB):
-                        local = functools.partial(
-                            _lk.remap_pack, LB=_LB,
-                            interpret=self._interpret)
-                        return jax.jit(jax.shard_map(
-                            local, mesh=mesh,
-                            in_specs=(P(None, "data", None), P()),
-                            out_specs=P(None, "data", None),
-                            check_vma=False))(ct, vocab)
-                    self._remap_fn = _remap_sharded
-                else:
-                    self._remap_fn = functools.partial(
-                        _lk.remap_pack, LB=self._LB,
-                        interpret=self._interpret)
-                self._chars_dev = jax.block_until_ready(cd)
-                self.cand3 = None
-                self.lb2 = lb2
-            else:
-                cand3, lb2 = _lk.prepare_corpus(
-                    jnp.asarray(chars), jnp.asarray(lens), LB=self._LB)
-                if ndev > 1:
-                    cand3 = jax.device_put(
-                        cand3, NamedSharding(mesh, P(None, "data", None)))
-                    lb2 = jax.device_put(
-                        lb2, NamedSharding(mesh, P("data", None)))
-                self.cand3 = jax.block_until_ready(cand3)
-                self.lb2 = lb2
-            self.lens = jax.device_put(lens, shard1)
-            if metric in _F64_METRICS:
-                self._lens_host = lens
-                self._chars4 = chars[:, :4].copy()
-            if metric in _PARTIAL_METRICS:
-                # partial_ratio needs (a) host lengths to find candidates
-                # shorter than the query (their window roles swap) and
-                # (b) their chars for the host re-score; keep a compact
-                # copy of the sorted corpus (ids are post-vocab-remap,
-                # same domain the encoded query lives in)
-                self._lens_host = lens
-                self._pchars = self._compact_chars(chars)
-        elif self._dam_pallas:
-            from ..ops.pallas import damerau_kernel as _dk
-            dam_shard = NamedSharding(mesh, P("data", None))
-            if self._dam_long:
-                bt, lt, self._dam_nb, self._dam_sub = \
-                    _dk.prepare_corpus_long(chars, lens)
-            elif self._dam_seq:
-                bt, lt, self._dam_lbmax = _dk.prepare_corpus_seq(chars,
-                                                                 lens)
-                dam_shard = NamedSharding(mesh, P("data", None, None))
-            else:
-                bt, lt, self._dam_seg = _dk.prepare_corpus_cols(chars,
-                                                                lens)
-            # device_put straight from numpy: shards host->device without
-            # staging the full array on device 0 first
-            self._dam_b = jax.block_until_ready(
-                jax.device_put(bt, dam_shard))
-            self._dam_lb = jax.device_put(lt, dam_shard)
-            self.lens = jax.device_put(lens, shard1)
-        elif metric in _F64_METRICS:
-            self.chars = jax.device_put(chars, shard)
-            self.lens = jax.device_put(lens, shard1)
-            self._lens_host = lens
+        self._fn_cache: dict = {}
+        # host copies in corpus order (padded)
+        self._lens_host = lens
+        if metric in _F64_METRICS:
             self._chars4 = chars[:, :4].copy()   # winkler prefix, host side
-            self._fn = jax.jit(_jaro_ops.jaro_components,
-                               out_shardings=(shard1, shard1))
-        elif metric in _PARTIAL_METRICS:
-            # off-TPU partial_ratio: host window sweep over a host corpus
-            # copy (windows still batch through the XLA LCS kernel)
-            self.lens = jax.device_put(lens, shard1)
-            self._lens_host = lens
+        if metric in _PARTIAL_METRICS:
+            # partial_ratio: host window sweep over a compact host corpus
+            # copy (windows batch through the XLA LCS kernel)
             self._pchars = self._compact_chars(chars)
-            self._fn = None
+        shard = NamedSharding(mesh, P("data"))
+        # device_put straight from numpy shards host->device without
+        # staging the full array on device 0 first
+        self.lens = jax.device_put(lens, shard)
+        if self._kernel:
+            # the kernel scans a length-sorted packed copy, so each block
+            # stops at its own longest candidate (the dynamic trip count).
+            # Each shard sorts its own slice of the corpus and returns its
+            # results to corpus order through its own inverse permutation,
+            # so no result crosses devices; a corpus ordered by length
+            # then loads its last shard most.
+            S = padded // ndev
+            local = [np.argsort(lens[k * S:(k + 1) * S], kind="stable")
+                     for k in range(ndev)]
+            order = np.concatenate([k * S + o for k, o in enumerate(local)])
+            self._inv = jax.device_put(np.concatenate(
+                [np.argsort(o) for o in local]).astype(np.int32), shard)
+            self._sorted_lens = jax.device_put(lens[order], shard)
+            self.cand = jax.block_until_ready(jax.jit(
+                functools.partial(_sk.prepare_corpus, LB=self._LB),
+                out_shardings=NamedSharding(mesh, P(None, "data")))(
+                    jax.device_put(chars[order],
+                                   NamedSharding(mesh, P("data", None)))))
+            # the unpacked corpus serves only queries past the kernel's
+            # word cap: built from the packed copy on first use
+            self._xla_corpus = None
         else:
-            self.chars = jax.device_put(chars, shard)
-            self.lens = jax.device_put(lens, shard1)
-            if self._weights is not None:
-                ins, dele, sub = self._weights
-                fn = functools.partial(_lev_ops.weighted_distance,
-                                       ins=ins, dele=dele, sub=sub)
-            else:
-                fn = _distance_fn(metric)
-            self._fn = jax.jit(fn, out_shardings=shard1)
+            # the XLA ops' [B, LB] corpus and its lengths
+            self._xla_corpus = (jax.device_put(
+                chars, NamedSharding(mesh, P("data", None))), self.lens)
 
-    def _pallas_sharded(self, run_fn, scal, tabs, statics: dict, nouts=1,
-                        cand3=None):
-        """Run a Pallas ``_run`` over the mesh-sharded packed corpus.
+    # ------------------------------------------------------------ routes
 
-        Each shard executes the kernel on its local candidate slice
-        (``shard_map`` over the ``data`` axis; query scalars + PM tables
-        replicated) — the Pallas path composes with multi-chip meshes
-        instead of falling back to the XLA kernels.
-        """
-        key = (run_fn, tuple(sorted(statics.items())), nouts)
-        f = self._smap_cache.get(key)
+    def _smap(self, local, in_specs, out_specs):
+        # check_vma off: pallas_call out_shapes carry no vma annotation
+        return jax.shard_map(local, mesh=self.mesh, in_specs=in_specs,
+                             out_specs=out_specs, check_vma=False)
+
+    def _kernel_fn(self, W: int, rows: int, G: int, one: bool):
+        """Jitted kernel scan + metric finish per shard, returned to corpus
+        order: (las [NQ], tabs, cand, lens, inv) -> [NQ, B], or [B] for
+        ``one`` query."""
+        key = ("kernel", W, rows, G, one)
+        f = self._fn_cache.get(key)
         if f is None:
-            def local(s, tb, c3, l2):
-                return run_fn(s, tb, c3, l2, **statics)
+            metric, wscale = self.metric, self._wscale
 
-            ospec = P("data", None)
-            # check_vma off: pallas_call out_shapes carry no vma annotation
-            f = jax.jit(jax.shard_map(
-                local, mesh=self.mesh,
-                in_specs=(P(), P(), P(None, "data", None), P("data", None)),
-                out_specs=ospec if nouts == 1 else (ospec,) * nouts,
-                check_vma=False))
-            self._smap_cache[key] = f
-        return f(scal, tabs, self.cand3 if cand3 is None else cand3,
-                 self.lb2)
+            def local(las, tabs, cand, lens, inv):
+                raw = _sk.run(las, tabs, cand, lens,
+                              lcs=metric != "levenshtein", W=W, rows=rows,
+                              G=G)
+                d = jnp.take(_kernel_finish(metric, raw, las, lens, wscale),
+                             inv, axis=1)
+                return d[0] if one else d
+
+            f = self._fn_cache[key] = jax.jit(self._smap(
+                local, (P(), P(), P(None, "data"), P("data"), P("data")),
+                P("data") if one else P(None, "data")))
+        return f
+
+    def _kernel_scan(self, qs, mode: str, G: int = 1):
+        """Device distances (corpus order, padded) of same-word-bucket
+        queries through the scan kernel: [len(qs), B], or [B] for one."""
+        W = _sk.n_words(max(q.size for q in qs))
+        rows = _sk.table_rows(mode)
+        # host -> every device directly (not through device 0)
+        las, tabs = jax.device_put(_sk.stage_queries(qs, rows, W),
+                                   NamedSharding(self.mesh, P()))
+        return self._kernel_fn(W, rows, G, len(qs) == 1)(
+            las, tabs, self.cand, self._sorted_lens, self._inv)
+
+    def _xla_fn(self):
+        """Jitted XLA scan of one padded query over the mesh, chunked
+        along the candidate axis."""
+        f = self._fn_cache.get("xla")
+        if f is None:
+            if self.metric in _F64_METRICS:
+                fn, out = _jaro_ops.jaro_components, (P("data"), P("data"))
+            elif self._weights is not None:
+                ins, dele, sub = self._weights
+                fn = functools.partial(_lev_ops.weighted_distance, ins=ins,
+                                       dele=dele, sub=sub)
+                out = P("data")
+            else:
+                fn, out = _distance_fn(self.metric), P("data")
+            f = self._fn_cache["xla"] = jax.jit(self._smap(
+                _dispatch.chunked(fn), (P(), P(), P("data", None),
+                                        P("data")), out))
+        return f
+
+    def _xla_chars(self):
+        """[B, LB] i32 device corpus (corpus order) for the XLA ops; on
+        the kernel route unpacked from the packed copy on first use."""
+        if self._xla_corpus is None:
+            LB = self._LB
+
+            def unpack(cand, lens, inv):
+                parts = [(cand >> jnp.uint32(8 * u)) & jnp.uint32(0xFF)
+                         for u in range(4)]
+                c = jnp.stack(parts, axis=1).reshape(LB, -1).T
+                c = jnp.where(jnp.arange(LB)[None, :] < lens[:, None],
+                              c.astype(jnp.int32), _codec.PAD)
+                return jnp.take(c, inv, axis=0)
+
+            self._xla_corpus = (jax.jit(self._smap(
+                unpack, (P(None, "data"), P("data"), P("data")),
+                P("data", None)))(self.cand, self._sorted_lens, self._inv),
+                self.lens)
+        return self._xla_corpus[0]
+
+    def _xla_scan(self, q):
+        qc, ql = _codec.pad_batch([q])
+        out = self._xla_fn()(qc, ql, self._xla_chars(), self.lens)
+        if self.metric in _F64_METRICS:
+            return self._jaro_finish(out[0], out[1], q)
+        return out * self._wscale if self._wscale != 1 else out
 
     def _encode_query(self, query):
         q = _codec.encode_one(query)
@@ -453,9 +373,6 @@ class CorpusScanner:
             sim = np.where(sim > 0.7, boosted, sim)
         return 1.0 - sim     # distance; host f64, exact
 
-    #: widest query the windowed partial_ratio kernel serves (W <= 2)
-    _PARTIAL_MAX_Q = 64
-
     @staticmethod
     def _compact_chars(chars: np.ndarray) -> np.ndarray:
         """Smallest-dtype host copy of the padded corpus (pads -> 0;
@@ -475,862 +392,122 @@ class CorpusScanner:
         from .. import fuzz as _fuzz
         return 1.0 - _fuzz._host_window_scores(q, self._partial_arrays())
 
-    def _partial_dev(self, q, qk, mode, cand3):
-        """partial_ratio distances (= 1 - best-window ratio) through the
-        windowed Pallas kernel (``ops/pallas/partial_kernel.py``); shorter-
-        than-query candidates re-score on the host path (window roles
-        swap there), queries beyond the kernel width fall back entirely."""
-        from .. import fuzz as _fuzz
-        from ..ops.pallas import lev_kernel as _lk
-        from ..ops.pallas import partial_kernel as _pk
-
-        m = int(q.size)
-        lens = self._lens_host
-        if m == 0:
-            return (lens > 0).astype(np.float64)
-        if m > self._PARTIAL_MAX_Q:
-            return self._partial_host_all(q)
-        if self._ndev > 1:
-            W = max(1, -(-m // 32))
-            ntab = 2 if mode == "byte" else 1
-            tabs = jnp.asarray(_lk.build_pm_tables(
-                np.asarray(qk, np.int32), mode))
-            M8, exact = (_pk.quantize_m(m) if not self._interpret
-                         else (0, False))
-            num, den, _, _ = self._pallas_sharded(
-                _pk._run, jnp.array([m], jnp.int32), tabs,
-                dict(LB=self._LB, W=W, ntab=ntab, M8=M8, exact=exact,
-                     interpret=self._interpret), nouts=4, cand3=cand3)
-        else:
-            num, den, _, _ = _pk.partial_ratio_1v_many(
-                qk, cand3, self.lb2, mode=mode, interpret=self._interpret)
-        num = np.asarray(num).reshape(-1).astype(np.float64)
-        den = np.asarray(den).reshape(-1).astype(np.float64)
-        d = (den - num) / den              # 1 - score, host f64
-        idx = np.flatnonzero((lens > 0) & (lens < m))
-        if idx.size:
-            d[idx] = 1.0 - self._partial_short_batched(q, idx)
-        return d
-
-    def _partial_short_batched(self, q: np.ndarray,
-                               idx: np.ndarray) -> np.ndarray:
-        """Best-window ratios for candidates SHORTER than the query.
-
-        Window roles swap there (the candidate slides over the query,
-        fuzz.rs:207-213 semantics), and the clipped window set depends
-        only on the candidate LENGTH — so candidates group by length and
-        each group scores against its shared ``m + n - 1`` query windows
-        in ONE batched device LCS dispatch (no per-candidate Python; the
-        round-2 path re-entered ``_best_window`` per candidate).  Scores
-        use the same f64 ``1 - dist/total`` finish as the host path, so
-        results are bit-identical.
-        """
-        from .. import fuzz as _fuzz
-        from ..ops import dispatch as _dispatch
-        from ..ops import lcs as _lcs_ops
-
-        m = int(q.size)
-        q64 = np.asarray(q, np.int64)
-        if q64.size and (q64.max() > np.iinfo(np.int32).max
-                         or q64.min() < 0):
-            # out-of-int32 symbol domain: the per-candidate host sweep
-            # keeps exact equality through the shared-vocab encoder
-            return _fuzz._host_window_scores(q, self._partial_arrays(idx))
-        lens = self._lens_host
-        out = np.empty(idx.size, np.float64)
-        pos = {int(c): k for k, c in enumerate(idx)}
-        for n in np.unique(lens[idx]):
-            n = int(n)
-            grp = idx[lens[idx] == n]
-            starts = np.maximum(0, np.arange(1, m + n) - n)
-            ends = np.minimum(m, np.arange(1, m + n))
-            W = starts.size
-            # fixed widths (query <= _PARTIAL_MAX_Q on this route) and
-            # pow2-bucketed batches: a handful of compilations total
-            # instead of one per (length, group-size) shape
-            WPAD = -(-self._PARTIAL_MAX_Q // 32) * 32
-            gidx = starts[:, None] + np.arange(WPAD)[None, :]
-            wins = np.where(gidx < ends[:, None],
-                            q64[np.minimum(gidx, m - 1)], -1).astype(
-                                np.int32)
-            wlens = (ends - starts).astype(np.int32)
-            cands = np.full((grp.size, WPAD), -1, np.int32)
-            cands[:, :n] = self._pchars[grp][:, :n]
-            best = np.full(grp.size, -1.0)
-            cchunk = max(1, (1 << 20) // W)    # pairs per dispatch cap
-            for lo in range(0, grp.size, cchunk):
-                sl = slice(lo, min(lo + cchunk, grp.size))
-                C = sl.stop - sl.start
-                c1 = np.repeat(wins, C, axis=0)
-                l1 = np.repeat(wlens, C)
-                c2 = np.tile(cands[sl], (W, 1))
-                l2 = np.full(W * C, n, np.int32)
-                npad = 1 << max(W * C - 1, 0).bit_length()
-                if npad > W * C:               # zero-len dummy pairs
-                    pad = npad - W * C
-                    c1 = np.vstack([c1, np.full((pad, WPAD), -1,
-                                                np.int32)])
-                    c2 = np.vstack([c2, np.full((pad, WPAD), -1,
-                                                np.int32)])
-                    l1 = np.r_[l1, np.zeros(pad, np.int32)]
-                    l2 = np.r_[l2, np.zeros(pad, np.int32)]
-                sim = _dispatch.run_pairs(_lcs_ops.lcs_similarity,
-                                          c1, l1, c2, l2)[: W * C]
-                tot = l1[: W * C].astype(np.int64) + n
-                r = 1.0 - ((tot - 2 * sim.astype(np.int64))
-                           / np.maximum(tot, 1))
-                best[sl] = r.reshape(W, C).max(axis=0)
-            for k, c in enumerate(grp):
-                out[pos[int(c)]] = best[k]
-        return out
-
-    def _distances_dev(self, query, score_cutoff=None, score_hint=None):
+    def _distances_dev(self, query):
+        """Distances over the padded corpus (corpus order): a device array,
+        or host f64 for the Jaro family and partial_ratio."""
         q = self._encode_query(query)
         if self._zero:
-            return np.zeros(int(np.prod(self.lb2.shape))
-                            if self._pallas else self.lens.shape[0],
-                            np.int64)
-        if self._dam_pallas and self._dam_long:
-            from ..ops.pallas import damerau_kernel as _dk
-            if (score_cutoff is not None and 0 <= score_cutoff <= 15
-                    and int(score_cutoff) == score_cutoff
-                    and self._ndev == 1):
-                # cutoff-banded long Damerau: the |i-j| <= k band is
-                # length-independent — at 8192 chars / k=15 it touches
-                # ~254k of the 67M full-DP cells.  Under a cutoff only
-                # |la-lb| <= k candidates can pass, so this is the
-                # long-dedup shape.  Seq-layout tiles staged lazily on
-                # the first banded scan (device-side transpose of the
-                # row tiles) and cached.
-                kb = _dk.pick_dam_band(int(score_cutoff), 1 << 30)
-                st = getattr(self, "_dam_band_staged", None)
-                if st is None:
-                    st = self._stage_dam_band()
-                bc, lt, lbmax = st
-                return _dk.damerau_seqband_long_1v_many(
-                    q, bc, lt, lbmax=lbmax, kband=kb,
-                    interpret=self._interpret)
-            b3 = None
-            if self._dam_nb > 48 and self._ndev == 1:
-                # streamed-block route: stage the (nb, rows, LANE)
-                # layout once instead of paying a corpus-sized
-                # transpose per scan
-                b3 = getattr(self, "_dam_b3", None)
-                if b3 is None:
-                    b3 = jax.block_until_ready(
-                        jax.jit(_dk.transpose_corpus_long,
-                                static_argnums=1)(
-                            self._dam_b, self._dam_nb))
-                    self._dam_b3 = b3
-            try:
-                return _dk.damerau_long_1v_many(
-                    q, self._dam_b, self._dam_lb, nb=self._dam_nb,
-                    sub=self._dam_sub, interpret=self._interpret,
-                    mesh=self.mesh if self._ndev > 1 else None, b3=b3)
-            except ValueError:         # query beyond the packed-value range
-                return self._wide_xla_fallback(q)
-        if self._dam_pallas and self._dam_seq:
-            from ..ops.pallas import damerau_kernel as _dk
-            if score_cutoff is not None and score_cutoff >= 0:
-                # cutoff-banded sequential pairs: O(k*M) instead of
-                # O(N*M).  The reference uses the cutoff only as a
-                # Delta-len guard (damerau_levenshtein.rs:111-168); on
-                # device the |i-j| <= k band is the big lever — results
-                # above the band come back > kband and are masked
-                # invalid by distances(), same (values, valid) contract
-                kb = _dk.pick_dam_band(int(score_cutoff),
-                                       self._dam_lbmax)
-                if kb is not None and int(score_cutoff) == score_cutoff:
-                    return _dk.damerau_seqband_1v_many(
-                        q, self._dam_b, self._dam_lb,
-                        lbmax=self._dam_lbmax, kband=kb,
-                        interpret=self._interpret,
-                        mesh=self.mesh if self._ndev > 1 else None)
-            return _dk.damerau_seq_1v_many(
-                q, self._dam_b, self._dam_lb, lbmax=self._dam_lbmax,
-                interpret=self._interpret,
-                mesh=self.mesh if self._ndev > 1 else None)
-        if self._dam_pallas:
-            from ..ops.pallas import damerau_kernel as _dk
-            return _dk.damerau_1v_many(
-                q, self._dam_b, self._dam_lb, seg=self._dam_seg,
-                interpret=self._interpret,
-                mesh=self.mesh if self._ndev > 1 else None)
-        if self._pallas:
-            from ..ops.pallas import lev_kernel as _lk
-            from ..ops.pallas import lcs_kernel as _ck
-            mode = _lk.pick_mode(q, self._cmax)
-            cand3 = self.cand3
-            qk = q                      # the query the kernels see
-            if self._wide:
-                qv = _lk.query_vocab(q)
-                if qv is None:          # > 127 distinct symbols
-                    if self.metric in _PARTIAL_METRICS:
-                        return self._partial_host_all(q)
-                    return self._wide_xla_fallback(q)
-                qvocab128, q_local = qv
-                cand3 = self._remap_fn(self._chars_dev,
-                                       jnp.asarray(qvocab128))
-                qk = q_local
-                mode = "local"
-            if self.metric in _PARTIAL_METRICS:
-                return self._partial_dev(q, qk, mode, cand3)
-            if (self.metric == "levenshtein" and self._stream
-                    and self._weights is None):
-                # streamed band: O(bw) per char regardless of the query's
-                # word count; placed before the mesh dispatch so sharded
-                # long-bucket scans get it too (same routing rule as the
-                # fori-form band: W must clear the band's step cost)
-                from ..ops.pallas import band_kernel as _bk
-                cut = (None if score_cutoff is None or self._wscale != 1
-                       else int(score_cutoff))
-                if (cut is None and score_hint is not None
-                        and self._wscale == 1 and self._ndev == 1):
-                    out = self._lev_hint_scan(qk, mode, cand3,
-                                              int(score_hint))
-                    if out is not None:
-                        return out
-                if (cut is not None and 0 <= cut <= _bk.MAX_CUTOFF_FAST
-                        and cut < q.size):
-                    bw = _bk.band_words(cut)
-                    Wq = max(1, -(-int(q.size) // 32))
-                    if q.size > 16 * bw - 1 and Wq >= 2 * bw + 1:
-                        if self._ndev > 1:
-                            ntab = 2 if mode == "byte" else 1
-                            stabs = jnp.asarray(_bk.build_shifted_tables(
-                                np.asarray(qk, np.int32), mode, self._LB,
-                                bw))
-                            out = self._pallas_sharded(
-                                _bk._run_stream,
-                                jnp.array([int(q.size), cut], jnp.int32),
-                                stabs,
-                                dict(LB=self._LB, ntab=ntab, bw=bw,
-                                     interpret=self._interpret),
-                                cand3=cand3)
-                        else:
-                            out = _bk.lev_banded_stream_1v_many(
-                                qk.astype(np.int32), cand3, self.lb2,
-                                cutoff=cut, mode=mode,
-                                interpret=self._interpret)
-                        return out.reshape(-1)
-            if self._ndev > 1:
-                return self._dist_pallas_mesh(qk, mode, cand3, q_finish=q)
-            if self.metric == "levenshtein":
-                if self._weights is not None:
-                    ins, dele, sub = self._weights
-                    if self._stream:
-                        from ..ops.pallas import stream_kernel as _sk
-                        W = max(1, -(-int(q.size) // 32))
-                        if W * 32 <= _sk.WLEV_STREAM_MAX_LA:
-                            out = _sk.wlev_stream_1v_many(
-                                qk.astype(np.int32), cand3, self.lb2,
-                                ins=ins, dele=dele, sub_cost=sub,
-                                mode=mode, interpret=self._interpret)
-                            return out.reshape(-1)
-                        # pattern beyond the row-scratch cap: XLA scan
-                        # over the unpacked device corpus
-                        return self._wide_xla_fallback(q)
-                    from ..ops.pallas import wlev_kernel as _wk
-                    out = _wk.wlev_1v_many(qk.astype(np.int32), cand3,
-                                           self.lb2, ins=ins, dele=dele,
-                                           sub_cost=sub, mode=mode,
-                                           interpret=self._interpret)
-                    return out.reshape(-1)
-                if self._stream:
-                    # (a cutoff-banded stream scan returns before the
-                    # mesh dispatch above)
-                    from ..ops.pallas import stream_kernel as _sk
-                    out = _sk.lev_stream_1v_many(qk, cand3, self.lb2,
-                                                 mode=mode,
-                                                 interpret=self._interpret)
-                    out = out.reshape(-1)
-                    return out * self._wscale if self._wscale != 1 else out
-                from ..ops.pallas import band_kernel as _bk
-                eff_cut = (None if score_cutoff is None or self._wscale != 1
-                           else score_cutoff)
-                if (eff_cut is None and score_hint is not None
-                        and self._wscale == 1 and not self._stream
-                        and self._ndev == 1):
-                    out = self._lev_hint_scan(qk, mode, cand3,
-                                              int(score_hint))
-                    if out is not None:
-                        return out
-                # cutoff-banded routing: the static table-driven kernel
-                # costs ~0.57x a full W=2 step per band word (flat form)
-                # or ~1.2x (fori form for longer buckets), while the full
-                # kernel's step cost grows with the query's word count W
-                # — so the band pays once W clears the band's op cost.
-                # Beyond the static kernel's bucket cap the dynamic
-                # variant's per-step scalar shifts cost ~2 Myers words,
-                # worthwhile only for W >= ~6 (queries > 160 chars).
-                LBp = int(cand3.shape[0]) * 4
-                band_ok = False
-                if (eff_cut is not None
-                        and 0 <= eff_cut <= _bk.MAX_CUTOFF_FAST
-                        and eff_cut < q.size):
-                    bw = _bk.band_words(int(eff_cut))
-                    Wq = max(1, -(-int(q.size) // 32))
-                    if q.size > 16 * bw - 1 and LBp <= _bk.FAST_MAX_LB:
-                        # measured v5e crossovers (experiments/
-                        # band_bw_speed.py): flat band per 64 steps costs
-                        # ~7.0/9.9/14.3 ms/8M at bw=1/2/3 vs the full
-                        # kernel's ~8.1/11.4/20 at W=2/4/8
-                        if LBp * bw <= _bk.FLAT_MAX_STEPS:
-                            band_ok = Wq >= 2 * bw
-                        else:
-                            band_ok = Wq >= 2 * bw + 1
-                    else:
-                        band_ok = (q.size > 160
-                                   and eff_cut <= _bk.MAX_CUTOFF)
-                if band_ok:
-                    # banded fast path: exact when <= cutoff, masked after
-                    out = _bk.lev_banded_1v_many(qk.astype(np.int32),
-                                                 cand3, self.lb2,
-                                                 cutoff=int(eff_cut),
-                                                 mode=mode,
-                                                 interpret=self._interpret)
-                    return out.reshape(-1)
-                out = _lk.lev_1v_many(qk, cand3, self.lb2, mode=mode,
-                                      interpret=self._interpret)
-                if self._wscale != 1:
-                    out = out * self._wscale
-                return out.reshape(-1)
-            if self.metric == "osa":
-                if self._stream:
-                    from ..ops.pallas import stream_kernel as _sk
-                    out = _sk.osa_stream_1v_many(qk, cand3, self.lb2,
-                                                 mode=mode,
-                                                 interpret=self._interpret)
-                    return out.reshape(-1)
-                from ..ops.pallas import osa_kernel as _ok
-                out = _ok.osa_1v_many(qk, cand3, self.lb2, mode=mode,
-                                      interpret=self._interpret)
-                return out.reshape(-1)
-            if self.metric in _F64_METRICS:
-                if self._stream:
-                    from ..ops.pallas import stream_kernel as _sk
-                    if not _sk.jaro_stream_query_fits(int(q.size),
-                                                     self._LB):
-                        self._warn_jaro_fallback()
-                        return self._wide_xla_fallback(q)
-                    common, trans = _sk.jaro_stream_1v_many(
-                        qk.astype(np.int32), cand3, self.lb2, mode=mode,
-                        interpret=self._interpret)
-                else:
-                    from ..ops.pallas import jaro_kernel as _jk
-                    common, trans = _jk.jaro_1v_many(
-                        qk.astype(np.int32), cand3, self.lb2, mode=mode,
-                        interpret=self._interpret)
-                return self._jaro_finish(common.reshape(-1),
-                                         trans.reshape(-1), q)
-            if not self._stream:
-                # cutoff-banded LCS route (indel.rs:80-104 ->
-                # lcs_seq.rs:267-341): an indel cutoff bounds the LCS DP
-                # to a diagonal band; an lcs_seq cutoff k admits indel
-                # <= 2k.  Same crossover rule as the lev band (the band
-                # step costs ~1.5x a Myers word): route once the query's
-                # word count clears twice the band's.  Byte mode needs a
-                # NUL-free query (candidate padding is byte 0, and the
-                # banded kernel relies on pads never matching; local
-                # mode maps pads to the always-empty MISS row).
-                from ..ops.pallas import lcs_band_kernel as _cbk
-                eff = (None if score_cutoff is None or self._wscale != 1
-                       else int(score_cutoff))
-                band_cut = (eff if self.metric == "indel"
-                            else None if eff is None else 2 * eff)
-                if (band_cut is not None
-                        and 0 <= band_cut <= _cbk.MAX_CUTOFF
-                        and int(cand3.shape[0]) * 4 <= _cbk.FAST_MAX_LB
-                        and (mode == "local"
-                             or not bool(np.any(np.asarray(qk) == 0)))):
-                    bw = _cbk.band_words(band_cut)
-                    Wq = max(1, -(-int(q.size) // 32))
-                    # measured v5e with staging amortized (evidence/
-                    # lcs_band_speed_r4.log): every bw wins from Wq >= 8
-                    # (256 chars: 1.13-1.35x; 512: 1.23-1.54x, incl.
-                    # bw=3) and loses at Wq=2 (0.78-0.92x) — route on
-                    # query width alone
-                    if Wq >= 8:
-                        sim = np.asarray(_cbk.lcs_banded_1v_many(
-                            np.asarray(qk, np.int32), cand3, self.lb2,
-                            cutoff=band_cut, mode=mode, cmax=self._cmax,
-                            interpret=self._interpret)).reshape(-1)
-                        la = q.size
-                        lb = np.asarray(self.lens).astype(np.int64)
-                        if self.metric == "indel":
-                            d = la + lb - 2 * sim
-                            return (d * self._wscale
-                                    if self._wscale != 1 else d)
-                        return np.maximum(la, lb) - sim
-            if self._stream:
-                from ..ops.pallas import lcs_band_kernel as _cbk
-                from ..ops.pallas import stream_kernel as _sk
-                eff = (None if score_cutoff is None or self._wscale != 1
-                       else int(score_cutoff))
-                band_cut = (eff if self.metric == "indel"
-                            else None if eff is None else 2 * eff)
-                if (band_cut is not None
-                        and 0 <= band_cut <= _cbk.MAX_CUTOFF
-                        and _cbk.band_words(band_cut) <= 2
-                        and max(1, -(-int(q.size) // 32)) >= 8
-                        and (mode == "local"
-                             or not bool(np.any(np.asarray(qk) == 0)))):
-                    sim = np.asarray(_cbk.lcs_banded_stream_1v_many(
-                        np.asarray(qk, np.int32), cand3, self.lb2,
-                        cutoff=band_cut, mode=mode, cmax=self._cmax,
-                        interpret=self._interpret)).reshape(-1)
-                else:
-                    sim = _sk.lcs_stream_1v_many(
-                        qk, cand3, self.lb2, mode=mode,
-                        interpret=self._interpret).reshape(-1)
-            else:
-                sim = _ck.lcs_1v_many(qk, cand3, self.lb2, mode=mode,
-                                      interpret=self._interpret).reshape(-1)
-            la = q.size
-            lb = self.lens.astype(jnp.int32)
-            if self.metric == "indel":
-                d = la + lb - 2 * sim
-                return d * self._wscale if self._wscale != 1 else d
-            return jnp.maximum(la, lb) - sim            # lcs_seq
+            return np.zeros(self.lens.shape[0], np.int64)
         if self.metric in _PARTIAL_METRICS:
             return self._partial_host_all(q)
-        qc, ql = _codec.pad_batch([q])
-        if self.metric in _F64_METRICS:
-            common, trans = self._fn(qc, ql, self.chars, self.lens)
-            return self._jaro_finish(common, trans, q)
-        d = self._fn(qc, ql, self.chars, self.lens)
-        return d * self._wscale if self._wscale != 1 else d
-
-    def _lev_hint_scan(self, qk, mode, cand3, hint):
-        """Two-pass hint scan (the reference's score-hint ladder,
-        ``levenshtein.rs:1069-1088``, in device form): pass 1 runs the
-        cheap banded kernel at the hint; candidates the band rejected are
-        compacted into a small dense batch for one full-kernel pass, so a
-        good hint resolves almost the whole corpus at the band rate while
-        every returned distance stays exact.  Returns None when the hint
-        isn't band-eligible (caller falls through to the full kernel)."""
-        from ..ops.pallas import band_kernel as _bk
-        from ..ops.pallas import lev_kernel as _lk
-        from ..ops.pallas import stream_kernel as _sk
-
-        stream = self._stream
-        q = np.asarray(qk)
-        cut = max(1, min(int(hint), _bk.MAX_CUTOFF_FAST))
-        bw = _bk.band_words(cut)
-        LBp = int(cand3.shape[0]) * 4
-        Wq = max(1, -(-int(q.size) // 32))
-        if stream:
-            # streamed band pass (>1024-char buckets): same routing rule
-            # as the cutoff path — W must clear the fori-form band cost
-            if not (cut < q.size and q.size > 16 * bw - 1
-                    and Wq >= 2 * bw + 1):
-                return None
-            band = np.array(_bk.lev_banded_stream_1v_many(
-                q.astype(np.int32), cand3, self.lb2, cutoff=cut,
-                mode=mode, interpret=self._interpret)).reshape(-1)
-        else:
-            if not (cut < q.size and q.size > 16 * bw - 1
-                    and LBp <= _bk.FAST_MAX_LB and Wq >= 2 * bw):
-                return None
-            band = np.array(_bk.lev_banded_1v_many(
-                q.astype(np.int32), cand3, self.lb2, cutoff=cut, mode=mode,
-                interpret=self._interpret)).reshape(-1)
-        idx = np.flatnonzero(band >= _bk.BIG)
-        if idx.size == 0:
-            return band
-        # compact the stragglers: gather their packed columns into a
-        # dense sub-corpus (padded to a whole 4096-candidate tile)
-        n = max(4096, int(-(-idx.size // 4096) * 4096))
-        idx_pad = np.full(n, int(idx[0]), np.int64)
-        idx_pad[: idx.size] = idx
-        ip = jnp.asarray(idx_pad)
-        R = cand3.shape[1] * 128
-        c2d = cand3.reshape(cand3.shape[0], R)
-        sub_c3 = jnp.take(c2d, ip, axis=1).reshape(cand3.shape[0],
-                                                   n // 128, 128)
-        sub_lb = jnp.take(self.lb2.reshape(-1), ip).reshape(n // 128, 128)
-        full_fn = _sk.lev_stream_1v_many if stream else _lk.lev_1v_many
-        full = np.asarray(full_fn(
-            q, sub_c3, sub_lb, mode=mode,
-            interpret=self._interpret)).reshape(-1)
-        band[idx] = full[: idx.size]
-        return band
-
-    def _band_auto_cut(self, query):
-        """Cheapest band cutoff the routing would actually accelerate for
-        this query, or None (mirrors the banded conditions in
-        ``_distances_dev``)."""
-        if not (self._pallas and self._ndev == 1 and not self._stream
-                and self.metric == "levenshtein"
-                and self._weights is None and self._wscale == 1
-                and not self._dam_pallas):
-            return None
-        from ..ops.pallas import band_kernel as _bk
-        qsize = int(_codec.encode_one(query).size)
-        if self._wide and qsize > 127:
-            # query may exceed the 128-entry local-remap vocab and drop
-            # to the XLA fallback, where a band pre-pass buys nothing
-            return None
-        LBp = self._LB
-        Wq = max(1, -(-qsize // 32))
-        for cut in (_bk.MAX_CUTOFF, 31, _bk.MAX_CUTOFF_FAST):
-            bw = _bk.band_words(cut)
-            if not (cut < qsize and qsize > 16 * bw - 1
-                    and LBp <= _bk.FAST_MAX_LB):
-                continue
-            if LBp * bw <= _bk.FLAT_MAX_STEPS:
-                if Wq >= 2 * bw:
-                    return cut
-            elif Wq >= 2 * bw + 1:
-                return cut
-        return None
-
-    def _stage_dam_band(self):
-        """Seq-layout tiles for the banded long-Damerau route, built
-        once on device from the resident row tiles (adds one corpus-
-        sized buffer; only materialized when a banded scan happens)."""
-        from ..ops.pallas import damerau_kernel as _dk
-
-        sub, LANE = _dk.SEQ_SUB, 128
-        x = self._dam_b
-        lens = self.lens
-        B8, nbL = int(x.shape[0]), int(x.shape[1])
-        CH = _dk.DAM_BAND_CHUNK
-        lbmax = -(-nbL // CH) * CH
-        Bp = -(-B8 // (sub * LANE)) * (sub * LANE)
-
-        gr_rows = sub * LANE
-        ngr = Bp // gr_rows
-
-        # group-at-a-time build into a donated buffer: a single jitted
-        # transpose would materialize ~3 corpus-sized buffers at once
-        # next to the resident row tiles (the indelband bench OOM'd the
-        # same way, evidence/bench_r5_indelband2.log) — here the
-        # transient is one 2048-row group (~64 MB at 8192 chars)
-        @jax.jit
-        def build_group(xg):
-            xp = jnp.full((gr_rows, lbmax), -2, jnp.int32)
-            xp = xp.at[:, :nbL].set(xg)
-            return jnp.transpose(xp.reshape(sub, LANE, lbmax),
-                                 (2, 0, 1))
-
-        place = jax.jit(
-            lambda buf, part, g: jax.lax.dynamic_update_slice(
-                buf, part, (g * lbmax, 0, 0)), donate_argnums=0)
-        bc = jnp.full((ngr * lbmax, sub, LANE), -2, jnp.int32)
-        for g in range(ngr):
-            lo = g * gr_rows
-            rows = x[lo: lo + gr_rows]
-            if int(rows.shape[0]) < gr_rows:
-                rows = jnp.concatenate(
-                    [rows, jnp.full((gr_rows - int(rows.shape[0]), nbL),
-                                    -2, jnp.int32)])
-            bc = place(bc, build_group(rows), g)
-        ln = jnp.zeros((Bp,), jnp.int32).at[:B8].set(
-            lens.astype(jnp.int32))
-        lt = ln.reshape(ngr, sub, LANE)
-        st = (jax.block_until_ready(bc), lt, lbmax)
-        self._dam_band_staged = st
-        return st
-
-    def _warn_jaro_fallback(self):
-        """Long query x long jaro bucket exceeds the stream kernel's
-        VMEM scratch (the W-word query flags scale with the query) —
-        warn once per scanner that the scan leaves the Pallas path
-        (still exact, served by the XLA jaro kernel)."""
-        if not getattr(self, "_jaro_fb_warned", False):
-            self._jaro_fb_warned = True
-            import warnings
-            warnings.warn(
-                "jaro query too long for the streamed device kernel at "
-                f"this bucket length ({self._LB}); using the slower XLA "
-                "path (results are identical)", RuntimeWarning,
-                stacklevel=3)
-
-    def _wide_xla_fallback(self, q):
-        """XLA-kernel scan for wide-alphabet queries with > 127 distinct
-        symbols (the query-local remap needs a 128-entry table); runs on
-        the same sorted device corpus the Pallas path remaps."""
-        shard1 = NamedSharding(self.mesh, P("data"))
-        fn = getattr(self, "_wide_fb_fn", None)
-        if fn is None:
-            if self.metric in _F64_METRICS:
-                fn = jax.jit(_jaro_ops.jaro_components,
-                             out_shardings=(shard1, shard1))
-            elif self._weights is not None:
-                ins, dele, sub = self._weights
-                fn = jax.jit(functools.partial(
-                    _lev_ops.weighted_distance, ins=ins, dele=dele,
-                    sub=sub), out_shardings=shard1)
-            else:
-                fn = jax.jit(_distance_fn(self.metric),
-                             out_shardings=shard1)
-            self._wide_fb_fn = fn
-        chars_bl = getattr(self, "_wide_chars_bl", None)
-        if chars_bl is None:
-            # [LB, B/128, 128] kernel layout -> the [B, LB] the XLA
-            # kernels take; built once, only when this rare path runs
-            cd = getattr(self, "_chars_dev", None)
-            if cd is None:
-                # byte-packed pallas corpus: unpack [LB/4, R, 128] u32
-                # to [LB, R, 128] chars (pads are 0 but sit past each
-                # candidate's length, which the XLA kernels mask)
-                c4 = self.cand3
-                parts = [((c4 >> jnp.uint32(8 * u))
-                          & jnp.uint32(0xFF)).astype(jnp.int32)
-                         for u in range(4)]
-                cd = jnp.stack(parts, axis=1).reshape(
-                    self._LB, *c4.shape[1:])
-            LB = cd.shape[0]
-            chars_bl = jnp.transpose(cd.reshape(LB, -1), (1, 0))
-            self._wide_chars_bl = chars_bl = jax.device_put(
-                chars_bl, NamedSharding(self.mesh, P("data", None)))
-        qc, ql = _codec.pad_batch([q])
-        if self.metric in _F64_METRICS:
-            common, trans = fn(qc, ql, chars_bl, self.lens)
-            return self._jaro_finish(np.asarray(common), np.asarray(trans),
-                                     q)
-        d = fn(qc, ql, chars_bl, self.lens)
-        return d * self._wscale if self._wscale != 1 else d
-
-    def _dist_pallas_mesh(self, q, mode, cand3=None, q_finish=None):
-        """Pallas scan over a multi-device mesh (per-shard kernels).
-
-        ``q`` is the query as the kernels see it (query-local ids on the
-        wide-alphabet path); ``q_finish`` the original query for the
-        host-side Jaro finish (prefix compares use original chars).
-        """
-        from ..ops.pallas import jaro_kernel as _jk
-        from ..ops.pallas import lev_kernel as _lk
-        from ..ops.pallas import osa_kernel as _ok
-        from ..ops.pallas import wlev_kernel as _wk
-
-        if q_finish is None:
-            q_finish = q
-        la = int(q.size)
-        q32 = q.astype(np.int32)
-        LB = self._LB
-        W = max(1, -(-max(la, 1) // 32))
-        ntab = 2 if mode == "byte" else 1
-        tabs = jnp.asarray(_lk.build_pm_tables(q32, mode))
-        scal = jnp.array([la], jnp.int32)
-        unroll = _lk.pick_unroll(LB)
-        lens = self.lens.astype(jnp.int32)
-
-        if self.metric == "levenshtein" and self._weights is not None:
-            ins, dele, sub = self._weights
-            scal4 = jnp.array([la, ins, dele, sub], jnp.int32)
-            if self._stream:
-                from ..ops.pallas import stream_kernel as _sk
-                if W * 32 > _sk.WLEV_STREAM_MAX_LA:
-                    return self._wide_xla_fallback(q_finish)
-                out = self._pallas_sharded(
-                    _sk._wlev_run, scal4, tabs,
-                    dict(LA=W * 32, LB=LB, W=W, ntab=ntab,
-                         interpret=self._interpret), cand3=cand3)
-                return out.reshape(-1)
-            out = self._pallas_sharded(
-                _wk._run, scal4, tabs,
-                dict(LA=W * 32, LB=LB, W=W, ntab=ntab,
-                     interpret=self._interpret), cand3=cand3)
-            return out.reshape(-1)
-        if la == 0:
-            if self.metric == "lcs_seq":
-                return lens
-            if self.metric == "indel":
-                return lens * self._wscale
-            if self.metric in _F64_METRICS:
-                return self._jaro_finish(
-                    np.zeros(lens.shape[0], np.int32),
-                    np.zeros(lens.shape[0], np.int32), q_finish)
-            return (lens * self._wscale).astype(jnp.int32)  # lev/osa
-        if self.metric == "levenshtein":
-            if self._stream:
-                from ..ops.pallas import stream_kernel as _sk
-                run_fn = _sk._run
-            else:
-                run_fn = _lk._run
-            out = self._pallas_sharded(
-                run_fn, scal, tabs,
-                dict(LB=LB, W=W, ntab=ntab, unroll=unroll,
-                     interpret=self._interpret), cand3=cand3)
-            out = out.reshape(-1)
-            return out * self._wscale if self._wscale != 1 else out
-        if self.metric == "osa":
-            if self._stream:
-                from ..ops.pallas import stream_kernel as _sk
-                run_fn = _sk._osa_run
-            else:
-                run_fn = _ok._run
-            out = self._pallas_sharded(
-                run_fn, scal, tabs,
-                dict(LB=LB, W=W, ntab=ntab, unroll=unroll,
-                     interpret=self._interpret), cand3=cand3)
-            return out.reshape(-1)
-        if self.metric in _F64_METRICS:
-            if self._stream:
-                from ..ops.pallas import stream_kernel as _sk
-                if not _sk.jaro_stream_query_fits(la, LB):
-                    self._warn_jaro_fallback()
-                    return self._wide_xla_fallback(q_finish)
-                scal_q = np.full(1 + W * 32, -3, np.int32)
-                scal_q[0] = la
-                scal_q[1:1 + la] = np.asarray(q32, np.int32)
-                common, trans = self._pallas_sharded(
-                    _sk._jaro_run, jnp.asarray(scal_q), tabs,
-                    dict(LB=LB, W=W, ntab=ntab,
-                         interpret=self._interpret),
-                    nouts=2, cand3=cand3)
-            else:
-                common, trans = self._pallas_sharded(
-                    _jk._run, scal, tabs,
-                    dict(LB=LB, W=W, ntab=ntab,
-                         interpret=self._interpret),
-                    nouts=2, cand3=cand3)
-            return self._jaro_finish(np.asarray(common).reshape(-1),
-                                     np.asarray(trans).reshape(-1),
-                                     q_finish)
-        sim = self._pallas_sharded(
-            _lcs_stream_run if self._stream else _lcs_run, scal, tabs,
-            dict(LB=LB, W=W, ntab=ntab, unroll=unroll,
-                     interpret=self._interpret), cand3=cand3).reshape(-1)
-        if self.metric == "indel":
-            d = la + lens - 2 * sim
-            return d * self._wscale if self._wscale != 1 else d
-        return jnp.maximum(la, lens) - sim               # lcs_seq
+        if self._kernel and _route.pick_route(
+                self._platform, self.metric, self._LB,
+                words=_sk.n_words(q.size)).kernel:
+            return self._kernel_scan([q], _sk.pick_mode(q, self._cmax))
+        return self._xla_scan(q)
 
     def distances(self, query, *, score_cutoff=None, score_hint=None):
         """Distances to every corpus string.
 
         Without ``score_cutoff``: a plain array.  With it: a
         ``(values, valid)`` :class:`BatchResult` — the batch rendering of
-        the reference's ``Option`` results (``common.rs:33-46``); on TPU a
-        small integer cutoff runs the banded kernel.  ``score_hint``
-        (uniform Levenshtein, no cutoff) never changes results but routes
-        a two-pass banded-then-compact scan — the device form of the
-        reference's hint ladder (``levenshtein.rs:1069-1088``).
+        the reference's ``Option`` results (``common.rs:33-46``), masked
+        exactly after the full scan.  ``score_hint`` is accepted for API
+        parity and never changes results.
         """
-        from ..ops import dispatch as _dispatch
         from .. import common as _c
 
-        d = np.asarray(self._distances_dev(query, score_cutoff,
-                                           score_hint))
-        if self._order is not None:
-            # every device path on the sorted route must return the padded
-            # length (== the sort permutation's size) for the unsort to be
-            # valid — guards the _zero/banded/weighted shortcut shapes
-            assert d.shape == self._order.shape, (d.shape, self._order.shape)
-            out = np.empty(d.shape, d.dtype)
-            out[self._order] = d
-            d = out[: self.n]
-        else:
-            d = d[: self.n]
+        d = np.asarray(self._distances_dev(query))[: self.n]
         if score_cutoff is None:
             return d
         return _dispatch.BatchResult(*_c.mask_distance(d, score_cutoff))
 
-    NQ_GROUP = 16  # queries per multi-query dispatch: 16-query
-    # chains sustain ~1.38G pairs/s on v5e (== the pure-kernel
-    # rate; 8 gave 1.35G) by sharing each corpus tile fetch
+    #: queries per grouped scan_many dispatch: one launch and one table
+    #: upload serve them all, and the kernel reuses each loaded text word
+    #: across the queries of a program
+    NQ_GROUP = 16
 
     @staticmethod
-    def _topk_host(d: np.ndarray, orig: np.ndarray, k: int):
-        """Deterministic host top-k: smallest k by (distance, original
+    def _topk_host(d: np.ndarray, k: int):
+        """Deterministic host top-k: ids of the smallest k by (distance,
         corpus index).  Plain ``argpartition[:k]`` picks arbitrary members
-        of a tie set straddling the k boundary, so different spaces
-        (sorted vs original) would return different ids; widening to the
-        tie boundary before ordering makes every caller agree."""
+        of a tie set straddling the k boundary; widening to the tie
+        boundary before ordering makes every route agree."""
         if k >= d.size:
             cand = np.arange(d.size)
         else:
             part = np.argpartition(d, k - 1)[:k]
             cand = np.nonzero(d <= d[part].max())[0]
-        cand = cand[np.lexsort((orig[cand], d[cand]))][:k]
-        return cand
+        return cand[np.lexsort((cand, d[cand]))][:k]
+
+    def _topk_of(self, dist, k: int):
+        """(values, ids) of the k nearest in padded corpus-order distances
+        (``[B]``, or ``[rows, B]`` per row): on device for integer
+        distances (``topk_merge``: ``lax.top_k`` keeps the lower index
+        first among ties, the same (distance, index) order as
+        :meth:`_topk_host`), on the host for the f64 routes."""
+        k = min(k, self.n)
+        if k == 0:
+            shape = dist.shape[:-1] + (0,)
+            return np.empty(shape, np.int64), np.empty(shape, np.int32)
+        if isinstance(dist, np.ndarray):    # host f64 (jaro family)
+            ids = self._topk_host(dist[: self.n], k)
+            return dist[ids], ids.astype(np.int32)
+        key = ("topk_in", dist.ndim)
+        f = self._fn_cache.get(key)
+        if f is None:
+            n = self.n
+
+            def prep(dist):
+                # integer distances are exact in float32 below 2**24, far
+                # above any distance a corpus bucket can produce
+                idx = jnp.arange(dist.shape[-1], dtype=jnp.int32)
+                return (jnp.where(idx < n, dist.astype(jnp.float32),
+                                  jnp.inf), idx)
+
+            f = self._fn_cache[key] = jax.jit(prep, out_shardings=(
+                NamedSharding(self.mesh,
+                              P(*(None,) * (dist.ndim - 1), "data")),
+                NamedSharding(self.mesh, P("data"))))
+        vals, ids = topk_merge(*f(dist), k, self.mesh, largest=False)
+        return np.asarray(vals).astype(np.int64), np.asarray(ids)
 
     def _nq_eligible(self) -> bool:
-        """scan_many can batch queries into one multi-query kernel dispatch
-        when a uniform Levenshtein / indel / lcs_seq Pallas path is active
-        on one device (the corpus tiles are query-independent there; the
-        wide-alphabet route remaps the corpus per query and cannot share
-        a dispatch)."""
-        return (self._pallas and self._ndev == 1 and not self._wide
-                and self.metric in ("levenshtein", "indel", "lcs_seq",
-                                    "osa", "jaro", "jaro_winkler")
-                and self._weights is None
-                and not self._stream and not self._zero
-                and not getattr(self, "_dam_pallas", False))
+        """scan_many can batch queries into grouped kernel dispatches on
+        the kernel route (the packed corpus is query-independent)."""
+        return self._kernel and not self._zero
 
     def _distances_many(self, queries):
-        """[len(queries), n] distances via grouped multi-query dispatches.
+        """Padded corpus-order device distances of the queries, as
+        ``(query positions, [>= len(positions), B] array)`` blocks (rows
+        past the positions are padding), via grouped multi-query
+        dispatches.
 
-        Queries are encoded, grouped by (word bucket, PM mode), padded to
-        :data:`NQ_GROUP` by repeating the group's last query (one
-        compilation serves every group; padded rows are dropped), and run
-        through ``lev_kernel.lev_nq_many`` — the ``BatchComparator`` PM
-        reuse pattern (``levenshtein.rs:1625-1657``) extended to many
-        queries per kernel launch.  Sustains ~1.35G pairs/s on v5e vs
-        ~1.1G for one-query-per-dispatch scans.
+        Queries are encoded, grouped by (word bucket, table mode), padded
+        to :data:`NQ_GROUP` by repeating the group's last query (one
+        compilation serves every group; padded rows are dropped) — the
+        ``BatchComparator`` PM reuse pattern (``levenshtein.rs:1625-1657``)
+        extended to many queries per kernel launch.  Queries past the
+        kernel's word cap scan one at a time on the XLA route.
         """
-        from ..ops.pallas import jaro_kernel as _jk
-        from ..ops.pallas import lcs_kernel as _ck
-        from ..ops.pallas import lev_kernel as _lk
-        from ..ops.pallas import osa_kernel as _ok
-
-        metric = self.metric
-        jaro = metric in _F64_METRICS
         enc = [self._encode_query(q) for q in queries]
-        out = np.zeros((len(enc), self.n),
-                       np.float64 if jaro else np.int64)
+        out = []
         groups: dict = {}
         for i, q in enumerate(enc):
-            w = max(1, -(-q.size // 32))
-            groups.setdefault((w, _lk.pick_mode(q, self._cmax)),
-                              []).append(i)
-        for (w, mode), idxs in groups.items():
+            r = _route.pick_route(self._platform, self.metric, self._LB,
+                                  grouped=True, words=_sk.n_words(q.size))
+            if not r.kernel:
+                out.append(([i], self._xla_scan(q)[None]))
+                continue
+            key = (_sk.n_words(q.size), _sk.pick_mode(q, self._cmax),
+                   r.group)
+            groups.setdefault(key, []).append(i)
+        for (_, mode, G), idxs in groups.items():
             for s in range(0, len(idxs), self.NQ_GROUP):
                 part = idxs[s: s + self.NQ_GROUP]
                 qs = [enc[i] for i in part]
                 qs = qs + [qs[-1]] * (self.NQ_GROUP - len(qs))
-                if jaro:
-                    cm, tr = _jk.jaro_nq_many(qs, self.cand3, self.lb2,
-                                              mode=mode,
-                                              interpret=self._interpret)
-                    cm = np.asarray(cm).reshape(self.NQ_GROUP, -1)
-                    tr = np.asarray(tr).reshape(self.NQ_GROUP, -1)
-                    # the Jaro finish (and Winkler prefix boost) runs in
-                    # SORTED space: _lens_host/_chars4 are sorted-order;
-                    # padded rows are dropped so only real queries finish
-                    d = np.stack([self._jaro_finish(cm[r], tr[r], enc[i])
-                                  for r, i in enumerate(part)])
-                else:
-                    nq_fn = {"levenshtein": _lk.lev_nq_many,
-                             "osa": _ok.osa_nq_many}.get(metric,
-                                                         _ck.lcs_nq_many)
-                    d = nq_fn(qs, self.cand3, self.lb2, mode=mode,
-                              interpret=self._interpret)
-                    d = np.asarray(d).reshape(self.NQ_GROUP, -1)
-                    if metric == "levenshtein" and self._wscale != 1:
-                        d = d * self._wscale
-                for row, i in enumerate(part):
-                    r = d[row]
-                    if self._order is not None:
-                        assert r.shape == self._order.shape
-                        un = np.empty(r.shape, r.dtype)
-                        un[self._order] = r
-                        r = un
-                    r = r[: self.n]
-                    if metric in ("indel", "lcs_seq"):
-                        # r holds LCS lengths; finish per metric on the
-                        # corpus-order host lengths
-                        la = enc[i].size
-                        if metric == "indel":
-                            r = la + self.lengths - 2 * r
-                            if self._wscale != 1:
-                                r = r * self._wscale
-                        else:                           # lcs_seq
-                            r = np.maximum(la, self.lengths) - r
-                    out[i] = r
+                out.append((part, self._kernel_scan(qs, mode, G)))
         return out
 
     def _ckpt_fingerprint(self, queries) -> str:
@@ -1390,16 +567,14 @@ class CorpusScanner:
             while qi < nq:
                 stop = min(nq, (qi // checkpoint_every + 1)
                            * checkpoint_every)
-                d = self._distances_many(queries[qi:stop])
-                if k is None:
-                    vals[qi:stop] = d
-                else:
-                    kk = min(k, self.n)
-                    for r, row in enumerate(d):
-                        rd = row.astype(np.float64)
-                        sel = self._topk_host(rd, np.arange(rd.size), kk)
-                        vals[qi + r, : len(sel)] = row[sel]
-                        ids[qi + r, : len(sel)] = sel
+                for pos, d in self._distances_many(queries[qi:stop]):
+                    rows = qi + np.asarray(pos)
+                    if k is None:
+                        vals[rows] = np.asarray(d)[: rows.size, : self.n]
+                    else:
+                        v, i = self._topk_of(d, k)
+                        vals[rows, : v.shape[1]] = v[: rows.size]
+                        ids[rows, : i.shape[1]] = i[: rows.size]
                 qi = stop
                 if checkpoint_path is not None and qi < nq:
                     _save(qi)
@@ -1432,47 +607,8 @@ class CorpusScanner:
             k = min(k, int(valid.sum()))
             if k == 0:
                 return np.empty(0, vals.dtype), np.empty(0, np.int32)
-            ids = self._topk_host(d, np.arange(d.size), k)
+            ids = self._topk_host(d, k)
             return vals[ids], ids.astype(np.int32)
-        # auto-band: top-k only needs the NEAREST candidates, so try the
-        # ~1.8x banded kernel first; if >= k candidates land under the
-        # band, nothing outside it can displace them (exact), otherwise
-        # fall through to the full scan
-        cut = self._band_auto_cut(query)
-        if cut is not None:
-            res = self.distances(query, score_cutoff=cut)
-            nv = int(res.valid.sum())
-            if nv >= min(k, self.n):
-                d = np.where(res.valid, res.values.astype(np.float64),
-                             np.inf)
-                ids = self._topk_host(d, np.arange(d.size), min(k, nv))
-                return res.values[ids], ids.astype(np.int32)
-        dist = self._distances_dev(query)
-        if self._order is not None:
-            # sorted space: mask padding rows, host top-k, map ids back
-            # (ties break on the ORIGINAL corpus index so results match
-            # the grouped scan_many path)
-            d = np.asarray(dist, np.float64)
-            d = np.where(self._valid, d, np.inf)
-            k = min(k, self.n)
-            ids = self._topk_host(d, self._order, k)
-            vals = d[ids]
-            if not np.issubdtype(np.asarray(dist).dtype, np.floating):
-                vals = vals.astype(np.int64)
-            return vals, self._order[ids].astype(np.int32)
-        if isinstance(dist, np.ndarray):    # host f64 path (jaro family)
-            d = dist[: self.n]
-            k = min(k, d.size)
-            ids = np.argpartition(d, k - 1)[:k] if k < d.size \
-                else np.arange(d.size)
-            ids = ids[np.lexsort((ids, d[ids]))]
-            return d[ids], ids.astype(np.int32)
-        # mask the alignment-padding rows; k clamps to the real corpus
-        # size so padding rows can never surface (empty corpus -> empty)
-        k = min(k, self.n)
-        if k == 0:
-            return np.empty(0, np.int64), np.empty(0, np.int32)
-        idx = jnp.arange(dist.shape[0], dtype=jnp.int32)
-        masked = jnp.where(idx < self.n, dist.astype(jnp.float32), jnp.inf)
-        vals, ids = topk_merge(masked, idx, k, self.mesh, largest=False)
-        return np.asarray(vals).astype(np.int64), np.asarray(ids)
+        # padding rows are masked out and k clamps to the real corpus
+        # size, so they never surface (empty corpus -> empty)
+        return self._topk_of(self._distances_dev(query), k)

@@ -8,38 +8,44 @@ plan).
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 
 def topk_merge(scores: jnp.ndarray, indices: jnp.ndarray, k: int,
                mesh: Mesh, largest: bool = True):
-    """Global top-k of a data-sharded ``scores`` (with global ``indices``).
+    """Global top-k along the last axis of data-sharded ``scores``.
 
-    scores, indices: [C] sharded on ``data``. Returns (values[k], idx[k])
-    replicated on every device.
+    scores: [..., C] sharded on ``data`` along C; indices: [C] global ids,
+    sharded alike.  Returns (values[..., k], idx[..., k]) replicated on
+    every device.  Among equal scores the lower position comes first
+    (``lax.top_k`` per shard, then over the shard-ordered gather).
     """
+    return _merge_fn(mesh, k, largest, scores.ndim)(scores, indices)
+
+
+@functools.cache
+def _merge_fn(mesh: Mesh, k: int, largest: bool, ndim: int):
+    """The compiled merge, built once per (mesh, k, direction, rank)."""
     sign = 1.0 if largest else -1.0
-    ndev = mesh.shape["data"]
-    shard_n = scores.shape[0] // ndev
-    local_k = min(k, shard_n)
-    k = min(k, shard_n * ndev)
 
     def local(scores_shard, idx_shard):
+        local_k = min(k, scores_shard.shape[-1])
         v, pos = lax.top_k(sign * scores_shard.astype(jnp.float32), local_k)
         i = jnp.take(idx_shard, pos)
         # gather the per-shard candidates to every device
-        v_all = lax.all_gather(v, "data", tiled=True)     # [ndev*local_k]
-        i_all = lax.all_gather(i, "data", tiled=True)
-        vg, posg = lax.top_k(v_all, k)
-        return sign * vg, jnp.take(i_all, posg)
+        v_all = lax.all_gather(v, "data", axis=ndim - 1, tiled=True)
+        i_all = lax.all_gather(i, "data", axis=ndim - 1, tiled=True)
+        vg, posg = lax.top_k(v_all, min(k, v_all.shape[-1]))
+        return sign * vg, jnp.take_along_axis(i_all, posg, axis=-1)
 
-    fn = jax.shard_map(
+    return jax.jit(jax.shard_map(
         local, mesh=mesh,
-        in_specs=(P("data"), P("data")),
+        in_specs=(P(*(None,) * (ndim - 1), "data"), P("data")),
         out_specs=(P(), P()),
         check_vma=False,
-    )
-    return fn(scores, indices)
+    ))

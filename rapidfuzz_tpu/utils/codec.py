@@ -1,9 +1,9 @@
-"""Host-side string/sequence encoding for the TPU kernels.
+"""Host-side string/sequence encoding for the device kernels.
 
 The reference library is generic over ``Iterator<Item: HashableChar>``
 (``/root/reference/src/lib.rs:146-148``): inputs may be ``.chars()``,
 ``.bytes()``, integer slices, or user types, and only *equality* of elements
-matters for every metric.  The TPU-native equivalent canonicalises every
+matters for every metric.  The device-native equivalent canonicalises every
 input into a padded ``int32`` array:
 
 * ``str``      -> unicode codepoints (max 0x10FFFF < 2**31, exact)

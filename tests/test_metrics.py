@@ -516,8 +516,10 @@ def test_u64_i64_hash_disambiguation():
 
 def test_batch_api_scan_route(monkeypatch):
     """distance_many([q], corpus) / BatchComparator.distances route large
-    one-vs-many batches through the Pallas corpus scan (>= SCAN_MIN
-    candidates) with results identical to the XLA pair-kernel path."""
+    one-vs-many batches through the corpus scan on GPU (>= SCAN_MIN
+    candidates: the scan kernel for levenshtein and the weights that
+    reduce to indel, the XLA route for osa) with results identical to the
+    XLA pair-kernel path."""
     import numpy as np
 
     from rapidfuzz_tpu.distance import _int_metric
@@ -534,7 +536,7 @@ def test_batch_api_scan_route(monkeypatch):
     ref_o = np.asarray(osa_mod.BatchComparator(q).distances(corpus).values)
     refw = np.asarray(lev_mod.BatchComparator(
         q, weights=lev_mod.WeightTable(1, 1, 2)).distances(corpus).values)
-    monkeypatch.setenv("RAPIDFUZZ_TPU_FORCE_PALLAS", "interpret")
+    _gpu_routes(monkeypatch)
     np.testing.assert_array_equal(
         np.asarray(lev_mod.BatchComparator(q).distances(corpus).values),
         ref)
@@ -548,7 +550,8 @@ def test_batch_api_scan_route(monkeypatch):
 
 
 def test_jaro_batch_api_scan_route(monkeypatch):
-    """Jaro-family *_many batches >= SCAN_MIN also ride the corpus scan;
+    """Jaro-family *_many batches >= SCAN_MIN also ride the corpus scan
+    on GPU (its XLA route);
     scores match the XLA route to <= 1 ulp (distance form round-trip)."""
     import numpy as np
 
@@ -564,9 +567,20 @@ def test_jaro_batch_api_scan_route(monkeypatch):
     ref_j = np.asarray(jaro_mod.similarity_many([q], corpus).values)
     ref_w = np.asarray(jw_mod.similarity_many(
         [q], corpus, prefix_weight=0.2).values)
-    monkeypatch.setenv("RAPIDFUZZ_TPU_FORCE_PALLAS", "interpret")
+    _gpu_routes(monkeypatch)
     got_j = np.asarray(jaro_mod.similarity_many([q], corpus).values)
     got_w = np.asarray(jw_mod.similarity_many(
         [q], corpus, prefix_weight=0.2).values)
     assert np.abs(got_j - ref_j).max() < 1e-15
     assert np.abs(got_w - ref_w).max() < 1e-15
+
+
+def _gpu_routes(monkeypatch):
+    """Route as on a GPU, the scan kernel in Pallas' interpreter (the
+    ``kernel_route`` fixture, applied mid-test after the reference
+    values)."""
+    from rapidfuzz_tpu.ops import route, scan_kernel
+
+    monkeypatch.setattr(route, "mesh_platform", lambda mesh: "gpu")
+    monkeypatch.setattr(route, "default_platform", lambda: "gpu")
+    monkeypatch.setattr(scan_kernel, "INTERPRET", True)

@@ -31,11 +31,10 @@ def test_warmup_route_table():
     corpus = ["apple", "apply", "ape", "maple", "orange", "grape", ""]
     service = ScanService(corpus, metric="levenshtein", bucket=32)
     table = service.warmup(full=True)
-    for route in ("distances", "distances_cutoff2", "distances_cutoff7",
-                  "distances_cutoff15", "distances_hint", "topk",
-                  "scan_many"):
-        assert route in table, table
-        assert isinstance(table[route], float), (route, table[route])
+    assert set(table) == {"distances", "distances_cutoff", "topk",
+                          "scan_many"}, table      # longest query: 1 word
+    for route, secs in table.items():
+        assert isinstance(secs, float), (route, secs)     # no "error: ..."
     # warmed routes answer without error afterwards
     assert service.distances("apple")["values"][0] == 0
 
